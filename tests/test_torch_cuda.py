@@ -1,0 +1,63 @@
+"""The Hopper kernels of repro_torch on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
+elsewhere.  On the card: ``python -m pytest -q tests/test_torch_cuda.py``.
+The file imports torch and repro_torch only, so it runs without jax.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
+from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
+
+pytestmark = pytest.mark.cuda
+
+DIST_RTOL = 1e-5  # the contract of tests/test_kernels_integration.py
+DIST_ATOL = 1e-6
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _words(gen, *shape):
+    return torch.randint(-(2**31), 2**31, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("q,k,w", [(2048, 48, 12), (37, 33, 14), (1, 1, 1), (5, 3, 100)])
+def test_hamming_rows_kernel_exact(gen, q, k, w):
+    a, c = _words(gen, q, w), _words(gen, q, k, w)
+    before = hamming_rows.launches
+    got = hamming_rows(a, c)
+    torch.cuda.synchronize()
+    assert hamming_rows.launches == before + 1
+    assert torch.equal(got, hamming_rows_ref(a, c))
+
+
+@pytest.mark.parametrize("q,c,d", [(2048, 1920, 384), (37, 333, 61), (3, 1025, 8), (2, 5, 1)])
+def test_qdist_windows_kernel_within_contract(gen, q, c, d):
+    w = -(-d // 8)
+    queries = torch.randn(q, d, generator=gen, device="cuda")
+    win = _words(gen, q, c, w)
+    cent = torch.sort(torch.randn(d, 16, generator=gen, device="cuda"), dim=1).values
+    before = qdist_windows.launches
+    got = qdist_windows(queries, win, cent)
+    torch.cuda.synchronize()
+    assert qdist_windows.launches == before + 1
+    torch.testing.assert_close(got, qdist_windows_ref(queries, win, cent),
+                               rtol=DIST_RTOL, atol=DIST_ATOL)
+
+
+def test_wrappers_reject_mixed_devices(gen):
+    a = _words(gen, 4, 3)
+    with pytest.raises(ValueError):
+        hamming_rows(a, a.cpu()[:, None, :].contiguous())
+    q = torch.zeros((2, 8), device="cuda")
+    with pytest.raises(ValueError):
+        qdist_windows(q, torch.zeros((2, 3, 1), dtype=torch.int32),
+                      torch.zeros((8, 16), device="cuda"))
