@@ -2,12 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, holds each
-against its plain PyTorch version at the search path's shapes, checks that
-a build on the card is bit-equal to a build on the CPU, then drives the main
-path at full width — ``HilbertIndex.build`` of 3,000,000 x 384 points with
-the README quickstart configuration and ``.search`` of 8192 queries — and
-checks recall@30 against exact ground truth, the kernel route against the
-plain route, and save -> load -> search bit-equality.
+against its plain PyTorch version at the main paths' shapes, checks that
+a build and a Task-2 graph on the card equal those on the CPU, then drives
+both tasks at full width on 3,000,000 x 384 points:
+
+* Task 1: ``HilbertIndex.build`` with the README quickstart configuration
+  and ``.search`` of 8192 queries; recall@30 against exact ground truth,
+  the kernel route against the plain route, save -> load -> search.
+* Task 2: ``HilbertIndex.build`` with the GOOAQ forest and
+  ``.knn_graph(gooaq.TABLE2[0])`` (80 orders, k1 96, k2 60, k 15);
+  recall@15 of 10,000 sampled rows against exact neighbours.
 
 Each phase prints one JSON line; the line before the last is the kernel
 table, the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -15,12 +19,14 @@ raises and the script exits non-zero.  Without a GPU, or run from a
 directory without ``src/repro_torch``, it prints no result and exits 2.
 
     python3 chip_smoke.py [--n 3000000] [--queries 8192] [--seed 0]
-                          [--recall-floor 0.50]
+                          [--recall-floor 0.50] [--task2-orders 80]
+                          [--task2-recall-floor F]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -45,8 +51,42 @@ TIE_ATOL = 1e-4
 # release drawing other random numbers from the same seed.
 RECALL_FLOOR = 0.50
 
+# recall@15 floor of the full-width Task-2 graph at --seed 0, 80 orders:
+# the first full run on an H100 measured 0.887 (PERF.md); the margin
+# covers another torch release drawing other random numbers.
+TASK2_RECALL_FLOOR = 0.85
+TASK2_RECALL_ROWS = 10_000  # sampled rows of the exact recall@15 check
+
 KERNEL_REPS = 20  # timed runs per kernel (after warm-up)
-PARITY_ROWS = 20_000  # rows of the cuda-vs-cpu build check
+PARITY_ROWS = 20_000  # rows of the cuda-vs-cpu build and graph checks
+MERGE_CHUNK = 1 << 16  # rows of one Task-2 merge pass (knn_graph's default)
+
+
+def kernel_fns():
+    """The kernel wrappers of the port, by name (each counts its launches)."""
+    from repro_torch.kernels.bitpack import pack_bits
+    from repro_torch.kernels.hamming import hamming_rows
+    from repro_torch.kernels.qdist import qdist_windows
+
+    return {"hamming_rows": hamming_rows, "qdist_windows": qdist_windows,
+            "pack_bits": pack_bits}
+
+
+def reset_launches() -> None:
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_launches(torch) -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in kernel_fns().items()}
+
+
+def require_launched(path: str, launches: dict, names) -> None:
+    missing = [n for n in names if launches[n] <= 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels {missing} of the path were not "
+                             f"launched: {launches}")
 
 
 def emit(obj) -> None:
@@ -119,6 +159,7 @@ def phase_build(build_mod):
 
 
 def phase_kernel_parity(torch, reps: int):
+    from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
     from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
     from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
 
@@ -131,30 +172,35 @@ def phase_kernel_parity(torch, reps: int):
 
     rows = []
     # --- hamming_rows: exact --------------------------------------------
-    ham = {}
-    for qn, k, w in ((2048, 48, 12), (37, 33, 14)):
+    # Shapes: Task-1 search (Q, k1, W); Task-2 merge (chunk, k1, W); odd.
+    ham, ham_times = {}, {}
+    for qn, k, w in ((2048, 48, 12), (MERGE_CHUNK, 96, 12), (37, 33, 14)):
         a, c = words(qn, w), words(qn, k, w)
         got, ref = hamming_rows(a, c), hamming_rows_ref(a, c)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"hamming_rows != plain version at {(qn, k, w)}")
-        ham[(qn, k, w)] = (a, c, got, ref)
-    a, c, got, ref = ham[(2048, 48, 12)]
-    qn, k, w = 2048, 48, 12
-    ms = median_ms(torch, lambda: hamming_rows(a, c), reps)
-    plain_ms = median_ms(torch, lambda: hamming_rows_ref(a, c), reps)
-    b_ms, b_by = bound((qn * w + qn * k * w + qn * k) * 4, 3 * qn * k * w)
+        ham[(qn, k, w)] = float((got - ref).abs().max())
+        if qn != 37:
+            b_ms, b_by = bound((qn * w + qn * k * w + qn * k) * 4, 3 * qn * k * w)
+            ham_times[(qn, k, w)] = {
+                "ms": median_ms(torch, lambda: hamming_rows(a, c), reps),
+                "plain_ms": median_ms(torch, lambda: hamming_rows_ref(a, c), reps),
+                "bound_ms": b_ms, "bound_by": b_by}
+        del a, c, got, ref
+    search_t, merge_t = ham_times[(2048, 48, 12)], ham_times[(MERGE_CHUNK, 96, 12)]
     rows.append({
         "name": "hamming_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/hamming_rows.cu",
         "replaces": "src/repro/kernels/hamming/kernel.py:83",
-        "max_abs_err": float((got - ref).abs().max()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": [qn, k, w],
+        "max_abs_err": max(ham.values()), **search_t,
+        "library_ms": None, "shape": [2048, 48, 12],
+        "task2_shape": [MERGE_CHUNK, 96, 12],
+        **{"task2_" + x: merge_t[x] for x in ("ms", "plain_ms", "bound_ms")},
     })
     emit({"phase": "kernel_parity", "kernel": "hamming_rows", "exact": True,
-          "shapes": [list(s) for s in ham], **{x: rows[-1][x] for x in
-          ("ms", "plain_ms", "bound_ms", "bound_by")}})
+          "shapes": [list(s) for s in ham],
+          "times": {str(list(s)): t for s, t in ham_times.items()}})
 
     # --- qdist_windows: rtol 1e-5, atol 1e-6 ------------------------------
     errs = {}
@@ -191,6 +237,40 @@ def phase_kernel_parity(torch, reps: int):
           **{x: rows[-1][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")}})
     del q, win, cent, keep
     torch.cuda.empty_cache()
+
+    # --- pack_bits: exact ---------------------------------------------------
+    # Shapes: the sketches of the corpus, one key chunk of the curve, odd.
+    pack_times = {}
+    for n, k in ((3_000_000, 384), (262_144, 448), (37, 61)):
+        bits = torch.randint(0, 2, (n, k), generator=g, device=dev,
+                             dtype=torch.uint8)
+        got, ref = pack_bits(bits), pack_bits_ref(bits)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"pack_bits != plain version at {(n, k)}")
+        if n != 37:
+            w = -(-k // 32)
+            b_ms, b_by = bound(n * k + n * w * 4, n * k)
+            pack_times[(n, k)] = {
+                "ms": median_ms(torch, lambda: pack_bits(bits), reps),
+                "plain_ms": median_ms(torch, lambda: pack_bits_ref(bits),
+                                      max(5, reps // 4)),
+                "bound_ms": b_ms, "bound_by": b_by}
+        del bits, got, ref
+    torch.cuda.empty_cache()
+    rows.append({
+        "name": "pack_bits", "route": "cuda",
+        "source": "src/repro_torch/csrc/pack_bits.cu",
+        "replaces": "src/repro/kernels/bitpack/kernel.py:34",
+        "max_abs_err": 0.0, **pack_times[(262_144, 448)],
+        "library_ms": None, "shape": [262_144, 448],
+        "sketch_shape": [3_000_000, 384],
+        **{"sketch_" + x: pack_times[(3_000_000, 384)][x]
+           for x in ("ms", "plain_ms", "bound_ms")},
+    })
+    emit({"phase": "kernel_parity", "kernel": "pack_bits", "exact": True,
+          "shapes": [[3_000_000, 384], [262_144, 448], [37, 61]],
+          "times": {str(list(s)): t for s, t in pack_times.items()}})
     return rows
 
 
@@ -198,7 +278,7 @@ def phase_device_parity(torch, cfg, n: int, seed: int):
     import numpy as np
 
     from repro_torch.data import ann_datasets
-    from repro_torch.index import HilbertIndex
+    from repro_torch.index import HilbertIndex, IndexConfig
 
     pts = ann_datasets.lowrank_embeddings(n, 384, seed=seed)
     t0 = time.perf_counter()
@@ -214,18 +294,80 @@ def phase_device_parity(torch, cfg, n: int, seed: int):
     if differ:
         raise AssertionError(f"cuda build differs from cpu build in {differ}")
 
+    # Task 2 on both devices: survivors bit-equal, graph within the contract.
+    from repro_torch.configs import gooaq
+    from repro_torch.core import knn_graph as knn_graph_lib
+    from repro_torch.index import GraphParams
 
-def exact_topk(torch, points, queries, k: int):
-    """Exact squared-L2 top-k ids by matmul over the corpus (a check only)."""
+    tcfg = IndexConfig(forest=dataclasses.replace(gooaq.FOREST, n_trees=1),
+                       store_points=True)
+    gp = GraphParams(n_orders=8, k1=96, k2=60, k=15)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        idx = HilbertIndex.build(pts, tcfg, device=dev)
+        fcfg = idx.config.forest
+        t0 = time.perf_counter()
+        surv = knn_graph_lib.graph_survivors(
+            idx.points, idx.sketches_master[idx.master_rank.long()], gp,
+            bits=fcfg.bits, key_bits=fcfg.key_bits, lo=idx.forest.lo,
+            hi=idx.forest.hi)
+        graph = idx.knn_graph(gp)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = ([t.cpu() for t in surv], [t.cpu() for t in graph],
+                    time.perf_counter() - t0)
+    (gs, gg, t_gpu), (cs, cg, t_cpu) = out["cuda"], out["cpu"]
+    surv_equal = torch.equal(gs[0], cs[0]) and torch.equal(gs[1], cs[1])
+    emit({"phase": "device_parity_task2", "n": n, "params": dataclasses.asdict(gp),
+          "survivors_bit_equal": surv_equal,
+          "max_abs_dist_diff": float((gg[1] - cg[1]).abs().max()),
+          "gpu_s": t_gpu, "cpu_s": t_cpu})
+    if not surv_equal:
+        raise AssertionError("cuda Task-2 survivors differ from cpu survivors")
+    torch.testing.assert_close(gg[1], cg[1], rtol=DIST_RTOL, atol=DIST_ATOL)
+    assert_ids_equal_up_to_ties(cg[0], gg[0], cg[1])
+
+
+def exact_topk(torch, points, queries, k: int, self_ids=None):
+    """Exact squared-L2 top-k ids by matmul over the corpus (a check only).
+
+    ``self_ids`` (one corpus row per query) are left out of each answer.
+    """
     chunk = max(1, min(512, 2**30 // points.shape[0]))  # <= 4 GiB of d2
     xsq = (points * points).sum(1)
     out = []
     for s in range(0, queries.shape[0], chunk):
         q = queries[s : s + chunk]
         d2 = xsq[None, :] - 2.0 * (q @ points.T) + (q * q).sum(1)[:, None]
+        if self_ids is not None:
+            d2.scatter_(1, self_ids[s : s + chunk, None], torch.inf)
         out.append(torch.topk(d2, k, dim=1, largest=False).indices)
         del d2
     return torch.cat(out)
+
+
+def device_time(prof, top: int):
+    """(device ms, top kernels, top ops) of a ``torch.profiler`` run.
+
+    The total sums the device-side events (kernels, copies, sets) only: a
+    CPU op's device time repeats the time of the kernels it launched.  The
+    ops are ranked by that attributed time, which names the launching op.
+    """
+    from torch.autograd import DeviceType
+
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if us > 0:
+            (ops if e.device_type == DeviceType.CPU else kernels).append(
+                (us / 1e3, e.count, e.key))
+    kernels.sort(reverse=True)
+    ops.sort(reverse=True)
+
+    def fmt(rows):
+        return [{"ms": ms, "count": n, "name": k[:80]} for ms, n, k in rows[:top]]
+
+    return sum(r[0] for r in kernels), fmt(kernels), fmt(ops)
 
 
 def phase_profile(torch, index, queries, params, top: int = 12):
@@ -242,55 +384,50 @@ def phase_profile(torch, index, queries, params, top: int = 12):
         index.search(queries, params)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
+    device_ms, kernels, ops = device_time(prof, top)
     emit({"phase": "profile", "wall_ms": wall_ms, "device_ms": device_ms,
           "busy_share": device_ms / wall_ms if device_ms else None,
-          "top": [{"ms": ms, "count": n, "name": k[:80]} for ms, n, k in rows[:top]]})
+          "top_kernels": kernels, "top_ops": ops})
 
 
-def phase_main_path(torch, cfg, params, n: int, nq: int, seed: int,
-                    recall_floor: float):
+def phase_data(torch, n: int, nq: int, seed: int):
+    """The corpus and the held-out queries, drawn on the card from ``seed``."""
     from repro_torch.data import ann_datasets
-    from repro_torch.index import HilbertIndex, build_with_timings
-    from repro_torch.kernels.hamming import hamming_rows
-    from repro_torch.kernels.qdist import qdist_windows
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     allpts = ann_datasets.lowrank_embeddings_torch(n + nq, 384, generator=g)
     torch.cuda.synchronize()
-    points, queries = allpts[:n], allpts[n:]
     emit({"phase": "data", "n": n, "queries": nq, "d": 384,
           "seconds": time.perf_counter() - t0})
+    return allpts[:n], allpts[n:]
 
+
+def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
+    """Task 1 at full width; returns the kernel launches of its build and search."""
+    from repro_torch.index import HilbertIndex, build_with_timings
+
+    n, nq = points.shape[0], queries.shape[0]
+    # Each counted run of a path: counts at 0 just before, read just after.
     torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     t0 = time.perf_counter()
     index, timings = build_with_timings(points, cfg, device="cuda")
     build_s = time.perf_counter() - t0
+    build_launches = read_launches(torch)
     emit({"phase": "build_index", "n": n, "timings_s": timings,
           "total_s": build_s, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "memory": index.memory_report()})
+          "memory": index.memory_report(), "launches": build_launches})
+    require_launched("task-1 build", build_launches, ["pack_bits"])
 
-    # The counted run of the main path: counts at 0 just before, read after.
-    hamming_rows.launches = 0
-    qdist_windows.launches = 0
-    torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     ids, dists = index.search(queries, params)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"hamming_rows": hamming_rows.launches,
-                "qdist_windows": qdist_windows.launches}
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    launches = read_launches(torch)
+    require_launched("task-1 search", launches,
+                     ["hamming_rows", "qdist_windows", "pack_bits"])
     t0 = time.perf_counter()
     ids2, dists2 = index.search(queries, params)
     torch.cuda.synchronize()
@@ -342,7 +479,124 @@ def phase_main_path(torch, cfg, params, n: int, nq: int, seed: int,
           "load_s": load_s})
     if not same:
         raise AssertionError("search after save -> load differs")
-    return launches
+    return {"build": build_launches, "search": launches}
+
+
+def phase_task2(torch, points, params, seed: int, recall_floor: float):
+    """Task 2 at full width: GOOAQ forest build, then ``knn_graph(params)``.
+
+    Returns the kernel launches of the build and of the graph.
+    """
+    from repro_torch.configs import gooaq
+    from repro_torch.index import IndexConfig, build_with_timings
+
+    n = points.shape[0]
+    cfg = IndexConfig(forest=dataclasses.replace(gooaq.FOREST, n_trees=1),
+                      store_points=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    index, timings = build_with_timings(points, cfg, device="cuda")
+    build_s = time.perf_counter() - t0
+    build_launches = read_launches(torch)
+    emit({"phase": "task2_build", "n": n, "forest": dataclasses.asdict(cfg.forest),
+          "timings_s": timings, "total_s": build_s,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": build_launches})
+    require_launched("task-2 build", build_launches, ["pack_bits"])
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, d2 = index.knn_graph(params)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    launches = read_launches(torch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require_launched("task-2 graph", launches, ["pack_bits", "hamming_rows"])
+    rows = torch.arange(n, device=ids.device, dtype=ids.dtype)[:, None]
+    if (ids.shape != (n, params.k) or not torch.isfinite(d2).all()
+            or (ids < 0).any() or (ids == rows).any()
+            or (d2[:, 1:] < d2[:, :-1]).any()):
+        raise AssertionError(f"bad graph: shape {tuple(ids.shape)}, finite "
+                             f"{bool(torch.isfinite(d2).all())}")
+    emit({"phase": "task2", "n": n, "params": dataclasses.asdict(params),
+          "graph_s": graph_s, "peak_gib": peak, "launches": launches})
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sample = torch.randperm(n, generator=g, device="cuda")[:TASK2_RECALL_ROWS]
+    truth = exact_topk(torch, points, points[sample], params.k, self_ids=sample)
+    got = ids[sample].long()
+    hits = (got[:, :, None] == truth[:, None, :]).any(-1).sum().item()
+    recall = hits / (sample.numel() * params.k)
+    emit({"phase": "task2_recall", "recall_at_15": recall, "rows": sample.numel(),
+          "floor": recall_floor, "ground_truth_s": time.perf_counter() - t0})
+    if recall < recall_floor:
+        raise AssertionError(f"task-2 recall@15 {recall} below floor {recall_floor}")
+
+    phase_task2_profile(torch, index, params)
+    return {"task2_build": build_launches, "task2": launches}
+
+
+def phase_task2_profile(torch, index, params, top: int = 12):
+    """Where one order of the graph goes: its stages timed one by one with a
+    synchronize between, then the device time by kernel of one order and
+    the exact re-rank under the profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import knn_graph as knn_graph_lib
+
+    fcfg = index.config.forest
+    points = index.points
+    n, d = points.shape
+    curve = dict(bits=fcfg.bits, key_bits=fcfg.key_bits)
+    rng = np.random.default_rng(params.seed)
+    perm = torch.as_tensor(rng.permutation(d).astype(np.int32), device="cuda")
+    flip = torch.as_tensor(rng.integers(0, 2, d).astype(bool), device="cuda")
+
+    def one_order():
+        stages = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sk = index.sketches_master[index.master_rank.long()]
+        best_id = torch.full((n, params.k2), -1, dtype=torch.int32, device="cuda")
+        best_d = torch.full((n, params.k2), 2**30, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        stages["setup_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        order, rank = knn_graph_lib.order_and_rank(points, index.forest.lo,
+                                                   index.forest.hi, perm, flip, **curve)
+        torch.cuda.synchronize()
+        stages["order_and_rank_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        best_id, _ = knn_graph_lib.merge_order(best_id, best_d, order, rank, sk,
+                                               k1=params.k1, k2=params.k2)
+        torch.cuda.synchronize()
+        stages["merge_order_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for s in range(0, n, MERGE_CHUNK):
+            knn_graph_lib.final_select_chunk(points, best_id[s : s + MERGE_CHUNK], s,
+                                             k=params.k)
+        torch.cuda.synchronize()
+        stages["final_select_s"] = time.perf_counter() - t0
+        return stages
+
+    one_order()  # warm
+    stages = one_order()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_order()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, kernels, ops = device_time(prof, top)
+    emit({"phase": "task2_profile", "stages_s": stages,
+          "graph_estimate_s": (params.n_orders * (stages["order_and_rank_s"]
+                                                   + stages["merge_order_s"])
+                               + stages["final_select_s"]),
+          "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+          "busy_share": device_ms / wall_ms if device_ms else None,
+          "top_kernels": kernels, "top_ops": ops})
 
 
 def main(argv=None) -> int:
@@ -353,6 +607,12 @@ def main(argv=None) -> int:
     ap.add_argument("--recall-floor", type=float, default=RECALL_FLOOR,
                     help="recall@30 the full-width search must reach (the "
                          "default was set at --n 3000000 --seed 0)")
+    ap.add_argument("--task2-orders", type=int, default=None,
+                    help="Hilbert orders of the Task-2 graph (default: "
+                         "gooaq.TABLE2[0], 80)")
+    ap.add_argument("--task2-recall-floor", type=float, default=TASK2_RECALL_FLOOR,
+                    help="recall@15 the full-width graph must reach (the "
+                         "default was set at --n 3000000 --seed 0, 80 orders)")
     args = ap.parse_args(argv)
 
     import torch
@@ -368,6 +628,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.configs import gooaq
     from repro_torch.index import ForestConfig, IndexConfig, SearchParams
     from repro_torch.kernels import _build
 
@@ -376,15 +637,25 @@ def main(argv=None) -> int:
         store_points=False,
     )
     params = SearchParams(k1=48, k2=384, h=2, k=30)
+    graph_params = gooaq.TABLE2[0]
+    if args.task2_orders is not None:
+        graph_params = dataclasses.replace(graph_params, n_orders=args.task2_orders)
 
     phase_device()
     phase_build(_build)
     kernels = phase_kernel_parity(torch, KERNEL_REPS)
     phase_device_parity(torch, cfg, PARITY_ROWS, args.seed)
-    launches = phase_main_path(torch, cfg, params, args.n, args.queries, args.seed,
+    points, queries = phase_data(torch, args.n, args.queries, args.seed)
+    launches = phase_main_path(torch, cfg, params, points, queries,
                                args.recall_floor)
+    del queries
+    torch.cuda.empty_cache()
+    launches.update(phase_task2(torch, points, graph_params, args.seed,
+                                args.task2_recall_floor))
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        by_path = {path: counts[row["name"]] for path, counts in launches.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

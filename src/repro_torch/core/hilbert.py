@@ -19,8 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import sketch
 from repro_torch.core.quantize import ROW_CHUNK
+from repro_torch.kernels import bitpack
 
 __all__ = [
     "axes_to_transpose",
@@ -197,12 +197,6 @@ def quantize_points(points: torch.Tensor, bits: int, lo: torch.Tensor,
     return g.to(torch.int32)
 
 
-def _pack_bits_to_words(bit_cols: torch.Tensor, n: int, key_bits: int) -> torch.Tensor:
-    """Pack the first ``key_bits`` columns of a (n, L*d) {0,1} matrix into
-    (n, W) words, MSB-first (the sketch packing; W = key_words(key_bits))."""
-    return sketch.pack_bits(bit_cols[:n, :key_bits])
-
-
 def _hilbert_keys_rows(points, bits, key_bits, lo, hi, perm, flip):
     n, d = points.shape
     coords = quantize_points(points, bits, lo, hi)
@@ -211,12 +205,16 @@ def _hilbert_keys_rows(points, bits, key_bits, lo, hi, perm, flip):
     if perm is not None:
         coords = coords[:, perm.long()]
     tr = axes_to_transpose(coords, bits)
-    # Interleave MSB-level-first: level b-1 of all dims, then b-2, ...
-    n_levels = -(-key_bits // d)
-    bit_cols = torch.cat(
-        [(tr >> (bits - 1 - j)) & 1 for j in range(n_levels)], dim=1
-    )
-    return _pack_bits_to_words(bit_cols, n, key_bits)
+    if bits <= 8:
+        tr = tr.to(torch.uint8)  # every level's bit column in one byte
+    # Interleave MSB-level-first (level b-1 of all dims, then b-2, ...) into
+    # an (n, key_bits) byte matrix, one byte per bit, and pack it.
+    bit_mat = torch.empty((n, key_bits), dtype=torch.uint8, device=points.device)
+    for j in range(-(-key_bits // d)):
+        c0 = j * d
+        cols = min(d, key_bits - c0)
+        bit_mat[:, c0 : c0 + cols] = (tr[:, :cols] >> (bits - 1 - j)) & 1
+    return bitpack.pack_bits(bit_mat)
 
 
 def hilbert_keys(

@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import forest as forest_lib
-from repro_torch.core import hilbert, sketch
+from repro_torch.core import hilbert, quantize, sketch
 from repro_torch.core.quantize import Quantizer
 from repro_torch.core.types import ForestConfig
 from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
@@ -31,8 +31,14 @@ from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
 __all__ = [
     "hilbert_master_sort",
     "stage1_tree_merge",
+    "stage1_forest",
+    "stage2_expand_rank",
     "stage2_packed_windows",
     "fused_search_chunk",
+    "merge_topk",
+    "merge_topk_pair",
+    "inflate_k",
+    "brute_force_topk",
     "paper_memory_model",
 ]
 
@@ -62,9 +68,18 @@ def hilbert_master_sort(points: torch.Tensor, cfg: ForestConfig,
 
 
 def _topk_smallest(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``lax.top_k(-values, k)`` as (values, indices): ascending, ties lower index first."""
-    srt = torch.sort(values, dim=1, stable=True)
-    return srt.values[:, :k], srt.indices[:, :k]
+    """``lax.top_k(-values, k)`` as (values, indices): ascending, ties lower index first.
+
+    ``lax.top_k`` orders floats totally, so -0.0 ranks before +0.0 where
+    ``torch.sort`` calls them equal; float32 values are therefore sorted by
+    their total-order integer key (the sign bit's run of bits flipped).
+    """
+    key = values
+    if values.dtype == torch.float32:
+        bits = values.view(torch.int32)
+        key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.sort(key, dim=1, stable=True).indices[:, :k]
+    return values.gather(1, idx), idx
 
 
 def _merge_topk_dedup(best_pos, best_dist, new_pos, new_dist, k: int):
@@ -158,6 +173,27 @@ def _dedup_rank_topk(pos, d2, valid, master_order, k: int):
     return ids, dist
 
 
+def stage2_expand_rank(queries, best_pos, codes_master, master_order,
+                       quant: Quantizer, *, h, k):
+    """±h expansion, dedup, exact ADC distance, top-k on UNPACKED codes.
+
+    ``codes_master`` is (n, d) uint8.  The reference for
+    :func:`stage2_packed_windows`: both share the windowed candidate
+    expansion and the dedup/top-k tail, and the plain packed distance
+    unpacks losslessly, so the two are bit-identical on the plain route.
+    """
+    n = master_order.shape[0]
+    qn, k2 = best_pos.shape
+    starts, pos, window = _expand_windows(best_pos, n, h)
+    codes = _window_slices(codes_master, starts, window)  # (Q, k2, window, d)
+    codes = codes.reshape(qn, k2 * window, codes_master.shape[1])
+    d2 = quantize.adc_distance(quant, queries, codes)
+    valid = (best_pos >= 0)[:, :, None].expand(pos.shape)
+    return _dedup_rank_topk(
+        pos.reshape(qn, -1), d2, valid.reshape(qn, -1), master_order, k
+    )
+
+
 def stage2_packed_windows(
     queries, best_pos, codes_packed, master_order, quant: Quantizer, *, h, k,
     use_kernels=False,
@@ -179,6 +215,45 @@ def stage2_packed_windows(
     return _dedup_rank_topk(
         pos.reshape(qn, -1), d2, valid.reshape(qn, -1), master_order, k
     )
+
+
+def stage1_forest(
+    queries,
+    qsketches,
+    orders,
+    directories,
+    lo,
+    hi,
+    perms,
+    flips,
+    master_rank,
+    sketches_master,
+    *,
+    bits,
+    key_bits,
+    leaf_size,
+    k1,
+    k2,
+    use_kernels=False,
+):
+    """Stage 1 over every tree of the stacked forest -> (Q, k2) best positions.
+
+    The JAX package runs the trees as a ``lax.scan`` inside one jitted
+    dispatch (fused) or as a per-tree dispatch loop (reference); here both
+    are this Python loop over the stacked forest arrays.
+    """
+    qn = queries.shape[0]
+    best_pos = torch.full((qn, k2), -1, dtype=torch.int32, device=queries.device)
+    best_dist = torch.full((qn, k2), _INF, dtype=torch.int32, device=queries.device)
+    for t in range(orders.shape[0]):
+        best_pos, best_dist = stage1_tree_merge(
+            queries, qsketches, best_pos, best_dist,
+            orders[t], directories[t], lo, hi, perms[t], flips[t],
+            master_rank, sketches_master,
+            bits=bits, key_bits=key_bits, leaf_size=leaf_size, k1=k1, k2=k2,
+            use_kernels=use_kernels,
+        )
+    return best_pos
 
 
 def fused_search_chunk(
@@ -204,25 +279,92 @@ def fused_search_chunk(
     k,
     use_kernels=False,
 ):
-    """One query chunk: sketch → stage 1 over every tree → packed stage 2.
-
-    The JAX package runs the trees as a ``lax.scan`` inside one jitted
-    dispatch; here a Python loop over the stacked forest arrays takes its
-    place.
-    """
-    qn = queries.shape[0]
+    """One query chunk: sketch → stage 1 over every tree → packed stage 2."""
     qsk = sketch.make_sketches(quant, queries)
-    best_pos = torch.full((qn, k2), -1, dtype=torch.int32, device=queries.device)
-    best_dist = torch.full((qn, k2), _INF, dtype=torch.int32, device=queries.device)
-    for t in range(orders.shape[0]):
-        best_pos, best_dist = stage1_tree_merge(
-            queries, qsk, best_pos, best_dist,
-            orders[t], directories[t], lo, hi, perms[t], flips[t],
-            master_rank, sketches_master,
-            bits=bits, key_bits=key_bits, leaf_size=leaf_size, k1=k1, k2=k2,
-            use_kernels=use_kernels,
-        )
+    best_pos = stage1_forest(
+        queries, qsk, orders, directories, lo, hi, perms, flips,
+        master_rank, sketches_master,
+        bits=bits, key_bits=key_bits, leaf_size=leaf_size, k1=k1, k2=k2,
+        use_kernels=use_kernels,
+    )
     return stage2_packed_windows(
         queries, best_pos, codes_packed, master_order, quant,
         h=h, k=k, use_kernels=use_kernels,
     )
+
+
+def merge_topk(ids: torch.Tensor, dists: torch.Tensor, *, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Associative cross-source top-k merge over (id, distance) candidates.
+
+    Args:
+      ids: (Q, C) int32 candidate ids; ``-1`` marks a padding slot.
+      dists: (Q, C) float distances; non-finite entries are masked out.
+      k: results per query.
+
+    Returns ``(ids (Q, k) int32, dists (Q, k))`` by ascending distance,
+    with the JAX package's contract: the same id from several sources is
+    kept once, at its smallest distance (earliest column among equals);
+    survivors keep their columns, so equal distances rank by input column
+    ("column-stable tie order"); fewer than ``k`` finite candidates pad the
+    tail with id -1 / +inf.
+    """
+    qn, c = ids.shape
+    # Stable lexsort by (id, dist): sort by the secondary key, then stably
+    # by the primary one; mark all but the first of every equal-id run and
+    # scatter the mask back to the original columns.
+    by_dist = torch.sort(dists, dim=1, stable=True).indices
+    by_id = torch.sort(ids.gather(1, by_dist), dim=1, stable=True).indices
+    order = by_dist.gather(1, by_id)
+    ids_s = ids.gather(1, order)
+    dup_s = torch.zeros_like(ids_s, dtype=torch.bool)
+    dup_s[:, 1:] = ids_s[:, 1:] == ids_s[:, :-1]
+    dup = torch.zeros_like(dup_s).scatter_(1, order, dup_s)
+    d = torch.where(dup | (ids < 0) | ~torch.isfinite(dists), torch.inf, dists)
+    k_top = min(k, c)
+    out_d, idx = _topk_smallest(d, k_top)
+    out_ids = torch.where(torch.isfinite(out_d), ids.gather(1, idx), -1)
+    if k_top < k:
+        pad = k - k_top
+        out_ids = torch.cat([out_ids, out_ids.new_full((qn, pad), -1)], dim=1)
+        out_d = torch.cat([out_d, out_d.new_full((qn, pad), torch.inf)], dim=1)
+    return out_ids, out_d
+
+
+def merge_topk_pair(ids_a, d_a, ids_b, d_b, first, *, k: int):
+    """One hop of a pairwise :func:`merge_topk` tree reduction.
+
+    ``first`` (a bool, or a bool tensor broadcast over queries) puts source
+    ``a`` in the leading columns; column order breaks distance ties, so two
+    ranks that key ``first`` to the lower rank merge identical layouts and
+    get bit-identical results.
+    """
+    first = torch.as_tensor(first, dtype=torch.bool, device=ids_a.device)
+    cat_i = torch.where(first, torch.cat([ids_a, ids_b], dim=1),
+                        torch.cat([ids_b, ids_a], dim=1))
+    cat_d = torch.where(first, torch.cat([d_a, d_b], dim=1),
+                        torch.cat([d_b, d_a], dim=1))
+    return merge_topk(cat_i, cat_d, k=k)
+
+
+def inflate_k(k: int, dead: int, pool: int) -> int:
+    """Tombstone-aware per-source ``k``: ``k + dead`` capped at the source's
+    stage-2 pool and floored at 1 (the LSM search contract)."""
+    return max(1, min(k + dead, pool))
+
+
+def brute_force_topk(queries: torch.Tensor, points: torch.Tensor,
+                     valid: torch.Tensor, *, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact squared-L2 top-k against a small point set.
+
+    Gram expansion ``||q||^2 - 2<q,p> + ||p||^2`` (clamped at 0) so the
+    transient is (Q, B); rows with ``valid`` False are +inf.  Returns
+    ``(row indices (Q, k) int32, d2 (Q, k))``.
+    """
+    qq = (queries * queries).sum(1)[:, None]
+    pp = (points * points).sum(1)[None, :]
+    d2 = torch.clamp_min(qq - 2.0 * (queries @ points.T) + pp, 0.0)
+    d2 = torch.where(valid[None, :], d2, torch.inf)
+    dist, idx = _topk_smallest(d2, k)
+    return idx.to(torch.int32), dist

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantize import Quantizer
+from repro_torch.kernels import bitpack
 
 __all__ = [
     "sketch_words",
@@ -26,18 +27,12 @@ def sketch_words(d: int) -> int:
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Pack (n, d) {0,1} into (n, ceil(d/32)) int32, bit 31 of word 0 first."""
-    n, d = bits.shape
-    w = sketch_words(d)
-    b = bits.to(torch.int32)
-    pad = w * 32 - d
-    if pad:
-        b = torch.nn.functional.pad(b, (0, pad))
-    b = b.reshape(n, w, 32)
-    out = b[:, :, 0] << 31
-    for j in range(1, 32):
-        out |= b[:, :, j] << (31 - j)
-    return out
+    """Pack (n, d) {0,1} into (n, ceil(d/32)) int32, bit 31 of word 0 first.
+
+    Routes through :func:`repro_torch.kernels.bitpack.pack_bits` (the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor).
+    """
+    return bitpack.pack_bits(bits.contiguous())
 
 
 def make_sketches(quant: Quantizer, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,4 @@
-"""Config dataclasses of the Hilbert forest core (copies of ``repro.core.types``;
-``GraphParams`` comes with Task 2)."""
+"""Config dataclasses of the Hilbert forest core (copies of ``repro.core.types``)."""
 
 from __future__ import annotations
 
@@ -47,3 +46,14 @@ class SearchParams:
     h: int = 2  # master-order expansion half-width
     k: int = 30  # final neighbors returned
 
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphParams:
+    """Algorithm 2 hyper-parameters (paper Table 2 names)."""
+
+    n_orders: int = 80
+    k1: int = 96
+    k2: int = 60
+    k: int = 15
+    seed: int = 0

@@ -19,6 +19,7 @@ __all__ = [
     "lowrank_dataset_with_queries",
     "lowrank_embeddings_torch",
     "exact_knn",
+    "exact_knn_graph",
     "recall_at_k",
 ]
 
@@ -116,6 +117,17 @@ def exact_knn(
         ids[s : s + chunk] = np.take_along_axis(part, srt, axis=1)
         dists[s : s + chunk] = np.take_along_axis(pd, srt, axis=1)
     return ids, dists
+
+
+def exact_knn_graph(data: np.ndarray, k: int, chunk: int = 1024) -> np.ndarray:
+    """Exact k-NN graph ids (self excluded)."""
+    ids, _ = exact_knn(data, data, k + 1, chunk=chunk)
+    out = np.empty((len(data), k), np.int32)
+    for i in range(len(data)):
+        row = ids[i]
+        row = row[row != i][:k]
+        out[i] = row
+    return out
 
 
 def recall_at_k(pred_ids: np.ndarray, true_ids: np.ndarray) -> float:

@@ -6,12 +6,14 @@ Port of ``repro.index.facade``:
   sketches, forest, master order) behind one call.
 * ``.search(queries, params)`` — Algorithm-1 ANN search; the index carries
   its build-time :class:`IndexConfig`.
+* ``.knn_graph(params)`` — Algorithm-2 k-NN graph over the indexed points
+  (Task 2), reusing the index's sketches and bounds.
 * ``.save(path)`` / ``HilbertIndex.load(path)`` — the JAX package's bundle
   layout, so an index saved by either package loads in the other.
 
 ``build`` and ``load`` run on ``cuda`` unless the caller passes
 ``device="cpu"``, and raise when no GPU is present and the CPU was not
-asked for.  ``search`` runs where the index lives.
+asked for.  ``search`` and ``knn_graph`` run where the index lives.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ import torch
 
 from repro_torch.checkpoint import bundle
 from repro_torch.core import forest as forest_lib
+from repro_torch.core import knn_graph as knn_graph_lib
 from repro_torch.core import quantize, sketch
 from repro_torch.core import search as search_lib
-from repro_torch.core.types import SearchParams
+from repro_torch.core.types import GraphParams, SearchParams
 from repro_torch.index.config import IndexConfig
 
 __all__ = ["HilbertIndex", "build_with_timings", "resolve_device", "BACKENDS"]
@@ -156,6 +159,7 @@ class HilbertIndex:
         *,
         backend: str = "kernel",
         query_chunk: Optional[int] = None,
+        fused: bool = True,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batched search — the paper's Algorithm 1.
 
@@ -168,6 +172,9 @@ class HilbertIndex:
             through their plain versions.
           query_chunk: chunk cap (default ``config.query_chunk``); every
             chunk is padded to a power-of-two bucket and trimmed after.
+          fused: the hot path (default), or the per-tree reference loop with
+            stage 2 on codes unpacked once per search — bit-identical to the
+            fused path on ``"ref"``.
 
         Returns:
           ``(ids (Q, k) int32, sq_distances (Q, k) float32)`` on the index's
@@ -187,6 +194,8 @@ class HilbertIndex:
                 torch.zeros((0, params.k), dtype=torch.int32, device=dev),
                 torch.zeros((0, params.k), dtype=torch.float32, device=dev),
             )
+        codes_u8 = (None if fused
+                    else quantize.unpack_codes(self.codes_master, self.dim))
         outs_i, outs_d = [], []
         for s in range(0, qn, query_chunk):
             q = queries[s : s + query_chunk]
@@ -194,21 +203,67 @@ class HilbertIndex:
             bucket = _pow2_bucket(m, query_chunk)
             if bucket > m:
                 q = torch.nn.functional.pad(q, (0, 0, 0, bucket - m))
-            ids, dists = self._search_chunk(q.contiguous(), params, use_kernels)
+            ids, dists = self._search_chunk(q.contiguous(), params, use_kernels,
+                                            codes_u8)
             outs_i.append(ids[:m])
             outs_d.append(dists[:m])
         return torch.cat(outs_i), torch.cat(outs_d)
 
-    def _search_chunk(self, queries, params: SearchParams, use_kernels: bool):
+    def _search_chunk(self, queries, params: SearchParams, use_kernels: bool,
+                      codes_u8: Optional[torch.Tensor] = None):
         fcfg = self.config.forest
         f = self.forest
-        return search_lib.fused_search_chunk(
-            queries, f.orders, f.directories, f.lo, f.hi, f.perms, f.flips,
-            self.master_rank, self.sketches_master, self.codes_master,
-            self.master_order, self.quant,
+        if codes_u8 is None:
+            return search_lib.fused_search_chunk(
+                queries, f.orders, f.directories, f.lo, f.hi, f.perms, f.flips,
+                self.master_rank, self.sketches_master, self.codes_master,
+                self.master_order, self.quant,
+                bits=fcfg.bits, key_bits=fcfg.key_bits,
+                leaf_size=fcfg.leaf_size, k1=params.k1, k2=params.k2,
+                h=params.h, k=params.k, use_kernels=use_kernels,
+            )
+        # Reference path: the same stage 1, then stage 2 on unpacked codes.
+        best_pos = search_lib.stage1_forest(
+            queries, sketch.make_sketches(self.quant, queries),
+            f.orders, f.directories, f.lo, f.hi, f.perms, f.flips,
+            self.master_rank, self.sketches_master,
+            bits=fcfg.bits, key_bits=fcfg.key_bits, leaf_size=fcfg.leaf_size,
+            k1=params.k1, k2=params.k2, use_kernels=use_kernels,
+        )
+        return search_lib.stage2_expand_rank(
+            queries, best_pos, codes_u8, self.master_order, self.quant,
+            h=params.h, k=params.k,
+        )
+
+    # -- Task 2: Algorithm-2 graph construction ------------------------------
+
+    def knn_graph(self, params: GraphParams = GraphParams(), *,
+                  chunk: int = 1 << 16) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Approximate k-NN graph over the indexed points — the paper's
+        Algorithm 2 (Task 2): randomized Hilbert orders, ±k1/2 rank windows,
+        a sketch-filtered running top-k2, exact fp32 re-rank.
+
+        Args:
+          params: ``n_orders``/``k1``/``k2``/``k`` (paper Table 2 names).
+          chunk: rows per merge and re-rank pass (memory only; no bit moves).
+
+        Returns:
+          ``(ids (n, k) int32, sq_distances (n, k) float32)`` on the index's
+          device: each point's approximate k nearest neighbours, self
+          excluded.  Needs ``IndexConfig(store_points=True)``.
+        """
+        if self.points is None:
+            raise ValueError(
+                "knn_graph() needs the raw points for exact re-ranking; this "
+                "index was built with IndexConfig(store_points=False)"
+            )
+        # sketches_master[master_rank[i]] is point i's sketch.
+        sketches_ids = self.sketches_master[self.master_rank.long()]
+        fcfg = self.config.forest
+        return knn_graph_lib.knn_graph_from_sketches(
+            self.points, sketches_ids, params,
             bits=fcfg.bits, key_bits=fcfg.key_bits,
-            leaf_size=fcfg.leaf_size, k1=params.k1, k2=params.k2,
-            h=params.h, k=params.k, use_kernels=use_kernels,
+            lo=self.forest.lo, hi=self.forest.hi, chunk=chunk,
         )
 
     # -- persistence ---------------------------------------------------------

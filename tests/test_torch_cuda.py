@@ -8,6 +8,7 @@ The file imports torch and repro_torch only, so it runs without jax.
 import pytest
 import torch
 
+from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
 from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
 from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
 
@@ -51,6 +52,17 @@ def test_qdist_windows_kernel_within_contract(gen, q, c, d):
     assert qdist_windows.launches == before + 1
     torch.testing.assert_close(got, qdist_windows_ref(queries, win, cent),
                                rtol=DIST_RTOL, atol=DIST_ATOL)
+
+
+@pytest.mark.parametrize("n,k", [(3000, 384), (262, 448), (37, 61), (1, 1), (5, 33)])
+def test_pack_bits_kernel_exact(gen, n, k):
+    bits = torch.randint(0, 2, (n, k), generator=gen, device="cuda", dtype=torch.uint8)
+    before = pack_bits.launches
+    got = pack_bits(bits)
+    torch.cuda.synchronize()
+    assert pack_bits.launches == before + 1
+    assert torch.equal(got, pack_bits_ref(bits))
+    assert torch.equal(pack_bits(bits.bool()), got)
 
 
 def test_wrappers_reject_mixed_devices(gen):

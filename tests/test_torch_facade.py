@@ -209,6 +209,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "idx = HilbertIndex.build(x, cfg, device='cpu')\n"
         "ids, d = idx.search(x[:5], SearchParams(k1=8, k2=16, h=1, k=3))\n"
         "assert ids.shape == (5, 3)\n"
+        "from repro_torch.index import GraphParams\n"
+        "from repro_torch.configs import gooaq\n"
+        "from repro_torch.core import knn_graph, search\n"
+        "g, _ = idx.knn_graph(GraphParams(n_orders=2, k1=8, k2=8, k=3))\n"
+        "assert g.shape == (500, 3) and gooaq.TABLE2[0].k == 15\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

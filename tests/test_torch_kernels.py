@@ -1,9 +1,10 @@
-"""Port parity: the plain versions of the two Hopper kernels against repro.
+"""Port parity: the plain versions of the Hopper kernels against repro.
 
 ``hamming_rows_ref`` must equal the JAX ``hamming_rows`` exactly, in both
-its interpret-mode Pallas kernel and its oracle; ``qdist_windows_ref``
-must agree with ``qdist_windows_from_packed`` (interpret-mode kernel and
-oracle) within the repo's distance contract.  On CPU tensors the wrappers
+its interpret-mode Pallas kernel and its oracle, and so must
+``pack_bits_ref`` the JAX ``pack_bits``; ``qdist_windows_ref`` must agree
+with ``qdist_windows_from_packed`` (interpret-mode kernel and oracle)
+within the repo's distance contract.  On CPU tensors the wrappers
 take the plain versions and launch nothing; the kernels themselves run in
 ``tests/test_torch_cuda.py`` on a GPU.
 """
@@ -13,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.bitpack import pack_bits as j_pack_bits
 from repro.kernels.hamming import hamming_rows as j_hamming_rows
 from repro.kernels.qdist import qdist_windows_from_packed
 from repro_torch.kernels import _build
+from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
 from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
 from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
 from test_kernels_integration import DIST_ATOL, DIST_RTOL
@@ -64,6 +67,38 @@ def test_qdist_windows_ref_matches_jax_kernel_and_oracle(q, c, d):
     before = qdist_windows.launches
     np.testing.assert_array_equal(qdist_windows(tq, tp, tc).numpy(), ref.numpy())
     assert qdist_windows.launches == before
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (37, 61), (300, 384), (257, 448)])
+def test_pack_bits_ref_matches_jax_kernel_and_oracle(n, k):
+    bits = np.random.default_rng(n * 7 + k).integers(0, 2, size=(n, k), dtype=np.uint8)
+    ref = pack_bits_ref(torch.from_numpy(bits))
+    assert ref.dtype == torch.int32 and ref.shape == (n, -(-k // 32))
+    for use_kernel in (True, False):
+        want = j_pack_bits(jnp.asarray(bits), use_kernel=use_kernel, interpret=True)
+        np.testing.assert_array_equal(np.asarray(want).view(np.int32), ref.numpy())
+    before = pack_bits.launches
+    np.testing.assert_array_equal(pack_bits(torch.from_numpy(bits)).numpy(), ref.numpy())
+    np.testing.assert_array_equal(pack_bits(torch.from_numpy(bits.astype(bool))).numpy(),
+                                  ref.numpy())
+    assert pack_bits.launches == before  # CPU tensors launch nothing
+
+
+def _bad_pack_args():
+    b = torch.zeros((4, 40), dtype=torch.uint8)
+    return [
+        (b.to(torch.int32), TypeError),
+        (b[0], ValueError),  # rank
+        (b[:, ::2], ValueError),  # strided
+        (b.numpy(), TypeError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_pack_bits_rejects_bad_arguments(case):
+    bits, err = _bad_pack_args()[case]
+    with pytest.raises(err):
+        pack_bits(bits)
 
 
 def _bad_hamming_args():

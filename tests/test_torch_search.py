@@ -12,15 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import quantize as jsq
 from repro.core import search as js
 from repro.core import sketch as jsk
 from repro.index import HilbertIndex as JIndex
 from repro.index import IndexConfig as JIndexConfig
 from repro.core.types import ForestConfig as JForestConfig
+from repro_torch.core import quantize as tq
 from repro_torch.core import search as ts
 from repro_torch.core import sketch as tsk
 from repro_torch.data import ann_datasets as tdata
-from repro_torch.index import index_from_arrays
+from repro_torch.index import SearchParams, index_from_arrays
 from test_kernels_integration import (DIST_ATOL, DIST_RTOL,
                                       _assert_ids_equal_up_to_distance_ties)
 
@@ -143,3 +145,98 @@ def test_expand_windows_and_slices_bit_equal():
 def test_paper_memory_model_matches():
     assert ts.paper_memory_model(1000, 384, 48000, 123) == js.paper_memory_model(
         1000, 384, 48000, 123)
+
+
+def test_stage2_expand_rank_matches_jax_and_packed_path(pair):
+    jidx, tidx, queries = pair
+    rng = np.random.default_rng(2)
+    n = tidx.n_points
+    best_pos = rng.integers(-1, n, size=(40, 24)).astype(np.int32)
+    best_pos[:, :3] = [0, n - 1, -1]  # both edges and padding
+    jcodes = jsq.unpack_codes(jidx.codes_master, jidx.dim)
+    tcodes = tq.unpack_codes(tidx.codes_master, tidx.dim)
+    np.testing.assert_array_equal(np.asarray(jcodes), tcodes.numpy())
+    jq, tqr, tbp = jnp.asarray(queries), torch.from_numpy(queries), torch.from_numpy(best_pos)
+    for h, k in ((0, 5), (2, 30), (1, 200)):
+        jids, jd = js.stage2_expand_rank(jq, jnp.asarray(best_pos), jcodes,
+                                         jidx.master_order, jidx.quant, h=h, k=k)
+        tids, td = ts.stage2_expand_rank(tqr, tbp, tcodes, tidx.master_order,
+                                         tidx.quant, h=h, k=k)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=DIST_RTOL,
+                                   atol=DIST_ATOL)
+        _assert_ids_equal_up_to_distance_ties(jids, tids.numpy(), jd)
+        pids, pd = ts.stage2_packed_windows(tqr, tbp, tidx.codes_master,
+                                            tidx.master_order, tidx.quant, h=h, k=k)
+        assert torch.equal(pids, tids) and torch.equal(pd, td)
+
+
+def _tied_candidates(seed, q, c):
+    rng = np.random.default_rng(seed)
+    # Few ids and few distance values: duplicates and ties everywhere.
+    ids = rng.integers(-1, 12, size=(q, c)).astype(np.int32)
+    d = (rng.integers(0, 4, size=(q, c)) / 4).astype(np.float32)
+    d[rng.random((q, c)) < 0.1] = np.inf
+    return ids, d
+
+
+@pytest.mark.parametrize("k", [1, 5, 24, 40])
+def test_merge_topk_bit_equal_with_ties_and_padding(k):
+    ids, d = _tied_candidates(k, 9, 24)
+    jids, jd = js.merge_topk(jnp.asarray(ids), jnp.asarray(d), k=k)
+    tids, td = ts.merge_topk(torch.from_numpy(ids), torch.from_numpy(d), k=k)
+    np.testing.assert_array_equal(np.asarray(jids), tids.numpy())
+    np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    assert tids.dtype == torch.int32 and td.shape == (9, k)
+
+
+def test_merge_topk_signed_zero_order_bit_equal():
+    # lax.top_k ranks -0.0 before +0.0; a plain torch.sort calls them equal.
+    ids = np.array([[3, 3, 1, 1], [5, 6, 7, 8]], np.int32)
+    d = np.array([[0.0, -0.0, -0.0, 0.0], [0.0, -0.0, 1.0, -1.0]], np.float32)
+    jids, jd = js.merge_topk(jnp.asarray(ids), jnp.asarray(d), k=4)
+    tids, td = ts.merge_topk(torch.from_numpy(ids), torch.from_numpy(d), k=4)
+    np.testing.assert_array_equal(np.asarray(jids), tids.numpy())
+    np.testing.assert_array_equal(np.signbit(np.asarray(jd)), np.signbit(td.numpy()))
+
+
+@pytest.mark.parametrize("first", [True, False])
+def test_merge_topk_pair_bit_equal(first):
+    ia, da = _tied_candidates(10, 6, 8)
+    ib, db = _tied_candidates(11, 6, 8)
+    jout = js.merge_topk_pair(*(jnp.asarray(a) for a in (ia, da, ib, db)),
+                              jnp.asarray(first), k=8)
+    tout = ts.merge_topk_pair(*(torch.from_numpy(a) for a in (ia, da, ib, db)),
+                              first, k=8)
+    for j, t in zip(jout, tout):
+        np.testing.assert_array_equal(np.asarray(j), t.numpy())
+
+
+def test_inflate_k_matches():
+    for k, dead, pool in ((10, 0, 50), (10, 45, 50), (0, 0, 5), (3, 2, 0)):
+        assert ts.inflate_k(k, dead, pool) == js.inflate_k(k, dead, pool)
+
+
+@pytest.mark.parametrize("k", [1, 7, 32])
+def test_brute_force_topk_matches_jax(k):
+    rng = np.random.default_rng(k)
+    pts = rng.normal(size=(32, 16)).astype(np.float32)
+    pts[5] = pts[9]  # an exact distance tie
+    queries = rng.normal(size=(8, 16)).astype(np.float32)
+    valid = rng.random(32) < 0.8
+    jidx, jd = js.brute_force_topk(jnp.asarray(queries), jnp.asarray(pts),
+                                   jnp.asarray(valid), k=k)
+    tidx, td = ts.brute_force_topk(torch.from_numpy(queries), torch.from_numpy(pts),
+                                   torch.from_numpy(valid), k=k)
+    assert tidx.dtype == torch.int32 and tidx.shape == (8, k)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=DIST_RTOL,
+                               atol=DIST_ATOL)
+    _assert_ids_equal_up_to_distance_ties(jidx, tidx.numpy(), jd)
+
+
+@pytest.mark.parametrize("backend", ["ref", "kernel"])
+def test_unfused_search_equals_fused(pair, backend):
+    _, tidx, queries = pair
+    p = SearchParams(k1=16, k2=64, h=1, k=8)
+    fused = tidx.search(queries, p, backend=backend, query_chunk=16)
+    loop = tidx.search(queries, p, backend=backend, query_chunk=16, fused=False)
+    assert torch.equal(fused[0], loop[0]) and torch.equal(fused[1], loop[1])
