@@ -3,12 +3,19 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, holds each
 against its plain PyTorch version at the main paths' shapes, checks that
-a build and a Task-2 graph on the card equal those on the CPU, then drives
-both tasks at full width on 3,000,000 x 384 points:
+a build, a Task-2 graph and a streamed LSM index on the card equal those
+on the CPU, then drives three paths at full width on 3,000,000 x 384
+points:
 
 * Task 1: ``HilbertIndex.build`` with the README quickstart configuration
   and ``.search`` of 8192 queries; recall@30 against exact ground truth,
   the kernel route against the plain route, save -> load -> search.
+* LSM (phase ``lsm``): ``MutableHilbertIndex`` with the same forest and
+  stored points bulk-loads 2,500,000 rows as one segment, saves, turns on
+  its WAL, then streams the other 500,000 rows in inserts of 4096 with
+  0.5 % deletes and a 2048-query search every 65,536 rows (seals and tier
+  merges); recall@30 beside a fresh build's, ``compact()`` bit-equal to a
+  fresh build over the live points, save -> load and WAL replay bit-equal.
 * Task 2: ``HilbertIndex.build`` with the GOOAQ forest and
   ``.knn_graph(gooaq.TABLE2[0])`` (80 orders, k1 96, k2 60, k 15);
   recall@15 of 10,000 sampled rows against exact neighbours.
@@ -21,6 +28,10 @@ directory without ``src/repro_torch``, it prints no result and exits 2.
     python3 chip_smoke.py [--n 3000000] [--queries 8192] [--seed 0]
                           [--recall-floor 0.50] [--task2-orders 80]
                           [--task2-recall-floor F]
+
+The LSM phase bulk-loads the first 5/6 of ``--n`` and streams the rest;
+``--queries`` must be at least 6144 (2048 searched, 4096 inserted as the
+WAL tail).
 """
 
 from __future__ import annotations
@@ -56,6 +67,20 @@ RECALL_FLOOR = 0.50
 # covers another torch release drawing other random numbers.
 TASK2_RECALL_FLOOR = 0.85
 TASK2_RECALL_ROWS = 10_000  # sampled rows of the exact recall@15 check
+
+# The LSM phase: the README quickstart forest with stored points (which
+# compaction re-sorts) and pow2 seals, a write buffer of 65,536 rows and
+# at most 4 segments, so the 500,000 streamed rows seal 7 times and force
+# tier merges; rounds of 65,536 inserted rows, each followed by deleting
+# 0.5 % of the live ids and a search of 2048 queries, as a serving engine
+# that expires entries runs it (benchmarks/churn.py's insert/expire/search).
+LSM_BUFFER = 1 << 16
+LSM_MAX_SEGMENTS = 4
+LSM_BATCH = 4096  # rows per insert call
+LSM_DELETE = 0.005  # share of the live ids deleted per round
+LSM_QUERIES = 2048
+LSM_TAIL = 4096  # rows inserted after the last save (the WAL tail)
+LSM_TAIL_DELETES = 1000
 
 KERNEL_REPS = 20  # timed runs per kernel (after warm-up)
 PARITY_ROWS = 20_000  # rows of the cuda-vs-cpu build and graph checks
@@ -239,9 +264,11 @@ def phase_kernel_parity(torch, reps: int):
     torch.cuda.empty_cache()
 
     # --- pack_bits: exact ---------------------------------------------------
-    # Shapes: the sketches of the corpus, one key chunk of the curve, odd.
+    # Shapes: the sketches of the corpus, one key chunk of the curve, the
+    # keys and sketches of one LSM seal, odd.
     pack_times = {}
-    for n, k in ((3_000_000, 384), (262_144, 448), (37, 61)):
+    for n, k in ((3_000_000, 384), (262_144, 448), (LSM_BUFFER, 448),
+                 (LSM_BUFFER, 384), (37, 61)):
         bits = torch.randint(0, 2, (n, k), generator=g, device=dev,
                              dtype=torch.uint8)
         got, ref = pack_bits(bits), pack_bits_ref(bits)
@@ -267,14 +294,43 @@ def phase_kernel_parity(torch, reps: int):
         "sketch_shape": [3_000_000, 384],
         **{"sketch_" + x: pack_times[(3_000_000, 384)][x]
            for x in ("ms", "plain_ms", "bound_ms")},
+        "lsm_seal_shape": [LSM_BUFFER, 448],
+        **{"lsm_seal_" + x: pack_times[(LSM_BUFFER, 448)][x]
+           for x in ("ms", "plain_ms", "bound_ms")},
     })
     emit({"phase": "kernel_parity", "kernel": "pack_bits", "exact": True,
-          "shapes": [[3_000_000, 384], [262_144, 448], [37, 61]],
+          "shapes": [[3_000_000, 384], [262_144, 448], [LSM_BUFFER, 448],
+                     [LSM_BUFFER, 384], [37, 61]],
           "times": {str(list(s)): t for s, t in pack_times.items()}})
     return rows
 
 
-def phase_device_parity(torch, cfg, n: int, seed: int):
+def lsm_state(mut) -> dict:
+    """Every array of a MutableHilbertIndex's state, on the host."""
+    import numpy as np
+
+    n = mut._buf_count
+    state = {"next_id": np.asarray(mut._next_id), "gen": np.asarray(mut._gen),
+             "alive": mut._alive.copy(), "buf_ids": mut._buf_ids[:n].copy(),
+             "buf_points": mut._buf_points[:n].copy()}
+    for i, seg in enumerate(mut.segments):
+        state[f"seg{i}.gen_n_valid"] = np.asarray([seg.gen, seg.n_valid])
+        state[f"seg{i}.ids"] = seg.ids
+        for k, v in seg.index.array_bundle().items():
+            state[f"seg{i}.{k}"] = v
+    return state
+
+
+def lsm_differ(a: dict, b: dict) -> list:
+    """Keys of two :func:`lsm_state` dicts whose arrays are not bit-equal."""
+    import numpy as np
+
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or not np.array_equal(a[k], b[k]))
+
+
+def phase_device_parity(torch, cfg, lsm_cfg, n: int, seed: int):
     import numpy as np
 
     from repro_torch.data import ann_datasets
@@ -326,6 +382,57 @@ def phase_device_parity(torch, cfg, n: int, seed: int):
         raise AssertionError("cuda Task-2 survivors differ from cpu survivors")
     torch.testing.assert_close(gg[1], cg[1], rtol=DIST_RTOL, atol=DIST_ATOL)
     assert_ids_equal_up_to_ties(cg[0], gg[0], cg[1])
+    phase_device_parity_lsm(torch, lsm_cfg, pts, seed)
+
+
+def phase_device_parity_lsm(torch, cfg, pts, seed: int):
+    """A streamed LSM index on both devices: half the rows bulk-loaded, the
+    rest in inserts of 1000 with 100 deletes after every other one (seals of
+    2048 and tier merges), then ``compact()``.  State bit-equal, search
+    within the contract; queries lie off the point set (the buffer's
+    Gram-form distances cancel on it)."""
+    import numpy as np
+
+    from repro_torch.data import ann_datasets
+    from repro_torch.index import MutableHilbertIndex, SearchParams
+
+    n = pts.shape[0]
+    queries = ann_datasets.lowrank_embeddings(256, 384, seed=seed + 1)
+    params = SearchParams(k1=48, k2=384, h=2, k=30)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(seed)
+        t0 = time.perf_counter()
+        mut = MutableHilbertIndex(cfg, buffer_capacity=2048, max_segments=3,
+                                  device=dev)
+        mut.bulk_load(pts[: n // 2])
+        for i, s in enumerate(range(n // 2, n, 1000)):
+            mut.insert(pts[s : s + 1000])
+            if i % 2:
+                mut.delete(rng.choice(mut.n_live + mut.n_deleted, 100, replace=False))
+        res = {"segments": mut.n_segments}
+        for stage in ("streamed", "compacted"):
+            if stage == "compacted":
+                mut.compact()
+            ids, d2 = (t.cpu() for t in mut.search(queries, params))
+            res[stage] = (lsm_state(mut), ids, d2)
+        res["s"] = time.perf_counter() - t0
+        out[dev] = res
+    gpu, cpu = out["cuda"], out["cpu"]
+    report = {"phase": "device_parity_lsm", "n": n, "gpu_s": gpu["s"],
+              "cpu_s": cpu["s"], "segments_streamed": gpu["segments"]}
+    for stage in ("streamed", "compacted"):
+        report[stage] = {
+            "differ": lsm_differ(cpu[stage][0], gpu[stage][0]),
+            "max_abs_dist_diff": float((gpu[stage][2] - cpu[stage][2]).abs().max())}
+    emit(report)
+    for stage in ("streamed", "compacted"):
+        if report[stage]["differ"]:
+            raise AssertionError(f"cuda LSM state ({stage}) differs from cpu in "
+                                 f"{report[stage]['differ']}")
+        (_, gids, gd), (_, cids, cd) = gpu[stage], cpu[stage]
+        torch.testing.assert_close(gd, cd, rtol=DIST_RTOL, atol=DIST_ATOL)
+        assert_ids_equal_up_to_ties(cids, gids, cd)
 
 
 def exact_topk(torch, points, queries, k: int, self_ids=None):
@@ -347,7 +454,8 @@ def exact_topk(torch, points, queries, k: int, self_ids=None):
 
 
 def device_time(prof, top: int):
-    """(device ms, top kernels, top ops) of a ``torch.profiler`` run.
+    """(device ms, top kernels, top ops, copy ms by kind) of a
+    ``torch.profiler`` run.
 
     The total sums the device-side events (kernels, copies, sets) only: a
     CPU op's device time repeats the time of the kernels it launched.  The
@@ -367,11 +475,13 @@ def device_time(prof, top: int):
     def fmt(rows):
         return [{"ms": ms, "count": n, "name": k[:80]} for ms, n, k in rows[:top]]
 
-    return sum(r[0] for r in kernels), fmt(kernels), fmt(ops)
+    copies = {k: {"ms": ms, "count": n} for ms, n, k in kernels if k.startswith("Memcpy")}
+    return sum(r[0] for r in kernels), fmt(kernels), fmt(ops), copies
 
 
-def phase_profile(torch, index, queries, params, top: int = 12):
-    """Device time by kernel over one warm search, and the device's busy share.
+def phase_profile(torch, search, phase: str = "profile", top: int = 12):
+    """Device time by kernel over one warm ``search()``, its host<->device
+    copies, and the device's busy share.
 
     The profiler's host overhead lengthens the wall time, so the busy share
     read here is a lower bound.
@@ -381,13 +491,13 @@ def phase_profile(torch, index, queries, params, top: int = 12):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        index.search(queries, params)
+        search()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms, kernels, ops = device_time(prof, top)
-    emit({"phase": "profile", "wall_ms": wall_ms, "device_ms": device_ms,
+    device_ms, kernels, ops, copies = device_time(prof, top)
+    emit({"phase": phase, "wall_ms": wall_ms, "device_ms": device_ms,
           "busy_share": device_ms / wall_ms if device_ms else None,
-          "top_kernels": kernels, "top_ops": ops})
+          "copies": copies, "top_kernels": kernels, "top_ops": ops})
 
 
 def phase_data(torch, n: int, nq: int, seed: int):
@@ -459,7 +569,7 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
           "max_abs_dist_diff": float((dists - dists_r).abs().max()),
           "plain_route_ms_per_query": ref_s * 1e3 / nq})
 
-    phase_profile(torch, index, queries, params)
+    phase_profile(torch, lambda: index.search(queries, params))
 
     path = os.path.join(ROOT, "build", "smoke_index")
     shutil.rmtree(path, ignore_errors=True)
@@ -480,6 +590,194 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
     if not same:
         raise AssertionError("search after save -> load differs")
     return {"build": build_launches, "search": launches}
+
+
+def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: float):
+    """The streaming LSM index at full width; returns the kernel launches of
+    its path (bulk load, stream, searches, compaction).
+
+    Bulk-load the first 5/6 of the points as one segment, save, turn on the
+    WAL, stream the rest in inserts of ``LSM_BATCH`` rows with a delete and
+    search round every ``LSM_BUFFER`` rows, then hold recall, compaction,
+    save/load and WAL replay to their references.
+    """
+    import gc
+
+    import numpy as np
+
+    from repro_torch.index import HilbertIndex, MutableHilbertIndex, WalConfig
+
+    n = points.shape[0]
+    bulk = n * 5 // 6
+    q = queries[:LSM_QUERIES]
+    tail = queries[LSM_QUERIES : LSM_QUERIES + LSM_TAIL]
+    if tail.shape[0] < LSM_TAIL:
+        raise ValueError(f"--queries must be >= {LSM_QUERIES + LSM_TAIL}")
+    rng = np.random.default_rng(seed)
+    live = np.zeros(n, np.bool_)  # the smoke's own record of the live ids
+    path = os.path.join(ROOT, "build", "smoke_lsm")
+    shutil.rmtree(path, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    try:
+        reset_launches()
+        mut = MutableHilbertIndex(cfg, buffer_capacity=LSM_BUFFER,
+                                  max_segments=LSM_MAX_SEGMENTS)
+        t0 = time.perf_counter()
+        live[mut.bulk_load(points[:bulk])] = True
+        torch.cuda.synchronize()
+        bulk_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mut.save(path)
+        save0_s = time.perf_counter() - t0
+        mut.enable_wal(path, WalConfig())
+        emit({"phase": "lsm_bulk", "rows": bulk, "bulk_load_s": bulk_s,
+              "save_s": save0_s, "memory": mut.memory_report()["per_segment"]})
+
+        # Time the seals (flush) and tier merges on the index itself.
+        spent = {"seal": [0.0, 0], "merge": [0.0, 0]}
+
+        def timed(fn, key):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                seg = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                spent[key][0] += time.perf_counter() - t
+                spent[key][1] += seg is not None
+                return seg
+            return run
+
+        mut.flush = timed(mut.flush, "seal")
+        mut._merge_segments = timed(mut._merge_segments, "merge")
+        pos, rnd = bulk, 0
+        while pos < n:
+            end = min(pos + LSM_BUFFER, n)
+            before = {k: list(v) for k, v in spent.items()}
+            t0 = time.perf_counter()
+            for s in range(pos, end, LSM_BATCH):
+                got = mut.insert(points[s : min(s + LSM_BATCH, end)])
+                if not np.array_equal(got, np.arange(s, s + got.size)):
+                    raise AssertionError(f"insert at row {s} returned ids {got[:4]}...")
+                live[got] = True
+            torch.cuda.synchronize()
+            insert_s = time.perf_counter() - t0
+            pos = end
+            live_ids = np.flatnonzero(live)
+            dead = rng.choice(live_ids, int(LSM_DELETE * live_ids.size), replace=False)
+            if mut.delete(dead) != dead.size:
+                raise AssertionError("delete of live ids did not tombstone them all")
+            live[dead] = False
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, d2 = mut.search(q, params, allow_rewrite=False)
+            torch.cuda.synchronize()
+            search_s = time.perf_counter() - t0
+            emit({"phase": "lsm_round", "round": rnd, "rows_inserted": pos - bulk,
+                  "deleted": int(dead.size), "insert_s": insert_s,
+                  "ms_per_query": search_s * 1e3 / q.shape[0],
+                  "n_segments": mut.n_segments, "n_buffered": mut.n_buffered,
+                  "segment_rows": [seg.n_points for seg in mut.segments],
+                  "seal_s": spent["seal"][0] - before["seal"][0],
+                  "seals": spent["seal"][1] - before["seal"][1],
+                  "merge_s": spent["merge"][0] - before["merge"][0],
+                  "merges": spent["merge"][1] - before["merge"][1],
+                  "rewrite_pressure": mut.rewrite_pressure(params)})
+            rnd += 1
+        live_ids = np.flatnonzero(live)
+        found = ids[ids >= 0].cpu().numpy()
+        if (mut.n_live != live_ids.size or ids.shape != (q.shape[0], params.k)
+                or not torch.isfinite(d2).all() or not live[found].all()):
+            raise AssertionError("streamed search returned dead ids or bad shapes")
+        # A stream of max_segments + 1 buffers or more must merge twice.
+        if ((n - bulk) // LSM_BUFFER > LSM_MAX_SEGMENTS and spent["merge"][1] < 2):
+            raise AssertionError(f"the stream ran {spent['merge'][1]} tier merges, "
+                                 "not the 2 or more it is sized for")
+        stream_ids = ids
+        # Where a streamed search's time goes: segments, buffer, host copies.
+        phase_profile(torch, lambda: mut.search(q, params, allow_rewrite=False),
+                      "lsm_profile")
+
+        t0 = time.perf_counter()
+        mut.compact()
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        cids, cd = mut.search(q, params)
+        launches = read_launches(torch)
+        require_launched("lsm", launches, ["hamming_rows", "qdist_windows", "pack_bits"])
+
+        # recall@30 of the streamed state, and of a fresh build over the live
+        # points in insertion order, which compaction must equal bit for bit.
+        live_t = torch.from_numpy(live_ids).to(points.device)
+        live_pts = points[live_t]
+        truth = live_t[exact_topk(torch, live_pts, q, params.k)]
+
+        def recall(got):
+            hits = (got.long()[:, :, None] == truth[:, None, :]).any(-1).sum().item()
+            return hits / (q.shape[0] * params.k)
+
+        t0 = time.perf_counter()
+        fresh = HilbertIndex.build(live_pts, cfg)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        del live_pts
+        fids, fd = fresh.search(q, params)
+        fids = live_t[fids.long()].to(torch.int32)
+        del fresh
+        same = torch.equal(cd, fd) and torch.equal(cids, fids)
+        emit({"phase": "lsm_recall", "recall_at_30": recall(stream_ids),
+              "fresh_build_recall_at_30": recall(fids), "floor": recall_floor,
+              "live": int(live_ids.size), "compact_s": compact_s,
+              "fresh_build_s": fresh_s, "compacted_equals_fresh_build": same,
+              "launches": launches})
+        if recall(stream_ids) < recall_floor:
+            raise AssertionError(f"LSM recall@30 {recall(stream_ids)} below "
+                                 f"floor {recall_floor}")
+        if not same:
+            raise AssertionError("search after compact() differs from a fresh "
+                                 "build over the live points")
+
+        # Persistence: save -> load bit-equal; then an unsaved WAL tail.
+        t0 = time.perf_counter()
+        mut.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = MutableHilbertIndex.load(path)
+        load_s = time.perf_counter() - t0
+        lids, ld = loaded.search(q, params)
+        loaded.detach_wal().close()
+        del loaded
+        load_equal = torch.equal(lids, cids) and torch.equal(ld, cd)
+        tail_ids = mut.insert(tail)
+        mut.delete(rng.choice(np.concatenate([live_ids, tail_ids]), LSM_TAIL_DELETES,
+                              replace=False))
+        mut.wal.sync()
+        wids, wd = mut.search(q, params)
+        want_state = (mut.n_live, mut.n_deleted, mut.n_buffered)
+        mut.detach_wal().close()
+        del mut
+        t0 = time.perf_counter()
+        rec = MutableHilbertIndex.load(path)
+        replay_s = time.perf_counter() - t0
+        rids, rd = rec.search(q, params)
+        replay_equal = (torch.equal(rids, wids) and torch.equal(rd, wd)
+                        and (rec.n_live, rec.n_deleted, rec.n_buffered) == want_state)
+        rec.detach_wal().close()
+        del rec
+        emit({"phase": "lsm_persistence", "save_s": save_s, "load_s": load_s,
+              "load_bit_equal": load_equal, "wal_replay_load_s": replay_s,
+              "wal_replay_bit_equal": replay_equal,
+              "wal_tail": {"rows": LSM_TAIL, "deletes": LSM_TAIL_DELETES}})
+        if not (load_equal and replay_equal):
+            raise AssertionError("LSM search after save -> load or WAL replay differs")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    emit({"phase": "lsm", "seconds": time.perf_counter() - t_phase,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "seal": spent["seal"], "merge": spent["merge"], "launches": launches})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lsm": launches}
 
 
 def phase_task2(torch, points, params, seed: int, recall_floor: float):
@@ -589,7 +887,7 @@ def phase_task2_profile(torch, index, params, top: int = 12):
         t0 = time.perf_counter()
         one_order()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_ms, kernels, ops = device_time(prof, top)
+    device_ms, kernels, ops, _ = device_time(prof, top)
     emit({"phase": "task2_profile", "stages_s": stages,
           "graph_estimate_s": (params.n_orders * (stages["order_and_rank_s"]
                                                    + stages["merge_order_s"])
@@ -636,6 +934,7 @@ def main(argv=None) -> int:
         forest=ForestConfig(n_trees=16, bits=4, key_bits=448, leaf_size=32),
         store_points=False,
     )
+    lsm_cfg = dataclasses.replace(cfg, store_points=True, seal_pow2=True)
     params = SearchParams(k1=48, k2=384, h=2, k=30)
     graph_params = gooaq.TABLE2[0]
     if args.task2_orders is not None:
@@ -644,10 +943,13 @@ def main(argv=None) -> int:
     phase_device()
     phase_build(_build)
     kernels = phase_kernel_parity(torch, KERNEL_REPS)
-    phase_device_parity(torch, cfg, PARITY_ROWS, args.seed)
+    phase_device_parity(torch, cfg, lsm_cfg, PARITY_ROWS, args.seed)
     points, queries = phase_data(torch, args.n, args.queries, args.seed)
     launches = phase_main_path(torch, cfg, params, points, queries,
                                args.recall_floor)
+    torch.cuda.empty_cache()
+    launches.update(phase_lsm(torch, lsm_cfg, params, points, queries, args.seed,
+                              args.recall_floor))
     del queries
     torch.cuda.empty_cache()
     launches.update(phase_task2(torch, points, graph_params, args.seed,

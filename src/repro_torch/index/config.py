@@ -2,9 +2,9 @@
 
 A copy of ``repro.index.config``: the same fields and the same
 ``to_dict``/``from_dict`` round trip, so a manifest written by either
-package configures an index in the other.  Fields that only the JAX
-package acts on yet (``shards``, ``mutable``, ``seal_pow2``, ``merge``,
-``merge_prune``) are carried unchanged so the manifest round-trips.
+package configures an index in the other.  Fields of the sharded layouts,
+which only the JAX package has yet (``shards``, ``merge``,
+``merge_prune``), are carried unchanged so the manifest round-trips.
 """
 
 from __future__ import annotations
@@ -33,9 +33,13 @@ class IndexConfig:
       store_points: keep the raw fp32 points on the index.
       query_chunk: search chunk cap; chunks are padded to power-of-two
         buckets up to this cap.
-      shards, mutable, seal_pow2, merge, merge_prune: layout settings of the
-        JAX package's sharded and streaming facades, carried so manifests
-        round-trip.
+      mutable: the JAX package's ``build_auto`` picks the streaming facade
+        (:class:`MutableHilbertIndex`) when set.
+      seal_pow2: :class:`MutableHilbertIndex` pads every seal and tier
+        merge to a power-of-two row count (duplicate rows share external
+        ids); compaction and bulk loads never pad.
+      shards, merge, merge_prune: layout settings of the JAX package's
+        sharded facades, carried so manifests round-trip.
     """
 
     forest: ForestConfig = ForestConfig()

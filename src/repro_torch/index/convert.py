@@ -2,12 +2,12 @@
 
 The JAX index's state reaches numpy through ``np.asarray(leaf)`` (its
 ``HilbertIndex._array_bundle()``) or through its saved bundle; both use the
-leaf names below.  Nothing here imports jax.
+leaf names of :data:`LEAF_NAMES`.  Nothing here imports jax.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,26 +16,11 @@ from repro_torch.checkpoint import bundle
 from repro_torch.core import forest as forest_lib
 from repro_torch.core import quantize
 from repro_torch.index.config import IndexConfig
-from repro_torch.index.facade import KIND, DeviceLike, HilbertIndex, resolve_device
+from repro_torch.index.facade import (KIND, LEAF_NAMES, DeviceLike, HilbertIndex,
+                                      resolve_device)
 
-__all__ = ["LEAF_NAMES", "index_from_arrays", "index_from_jax_bundle"]
+__all__ = ["LEAF_NAMES", "index_from_arrays", "load_index_bundle"]
 
-# Leaf name -> dtype of the port's tensor (32-bit words are carried as int32).
-LEAF_NAMES = {
-    "forest.perms": np.int32,
-    "forest.flips": np.bool_,
-    "forest.orders": np.int32,
-    "forest.directories": np.int32,
-    "forest.lo": np.float32,
-    "forest.hi": np.float32,
-    "quant.boundaries": np.float32,
-    "quant.centroids": np.float32,
-    "codes_master": np.int32,
-    "sketches_master": np.int32,
-    "master_order": np.int32,
-    "master_rank": np.int32,
-    "points": np.float32,
-}
 _WORDS = ("forest.directories", "codes_master", "sketches_master")
 
 
@@ -86,21 +71,46 @@ def index_from_arrays(arrays: Mapping[str, np.ndarray], config_dict: Dict, *,
     )
 
 
-def index_from_jax_bundle(path: str, *, device: DeviceLike = None) -> HilbertIndex:
-    """Load the newest step of an index bundle saved by either package.
+def load_index_bundle(path: str, *, kind: str = KIND, device: DeviceLike = None
+                      ) -> Tuple[HilbertIndex, Dict[str, np.ndarray], Dict]:
+    """Load the newest verifiable step of an index bundle saved by either
+    package (``repro.index.facade.load_index_bundle``).
 
-    Format 1 bundles (unpacked uint8 codes) are repacked; every leaf read
-    is checked against its manifest digest.
+    Returns ``(index, extra_arrays, manifest_extra)``; sidecar arrays keep
+    the dtype the manifest records.  A step that fails verification is
+    quarantined (``step_%08d.quarantine/``) and the next older one tried;
+    when none is left the last :class:`~bundle.CorruptBundleError` is
+    raised.  Format 1 bundles (unpacked uint8 codes) are repacked.
     """
     dev = resolve_device(device)
-    step = bundle.latest_step(path)
-    if step is None:
-        raise FileNotFoundError(f"no HilbertIndex checkpoint under {path!r}")
-    extra = bundle.read_manifest(path, step).get("extra", {})
-    if extra.get("kind") != KIND:
+    last_err: Optional[bundle.CorruptBundleError] = None
+    while True:
+        step = bundle.latest_step(path)
+        if step is None:
+            if last_err is not None:
+                raise last_err
+            raise FileNotFoundError(f"no HilbertIndex checkpoint under {path!r}")
+        try:
+            return _load_index_bundle_step(path, step, kind, dev)
+        except bundle.CorruptBundleError as e:  # quarantined; try an older step
+            last_err = e
+
+
+def _load_index_bundle_step(path: str, step: int, kind: str, dev: torch.device):
+    try:
+        manifest = bundle.read_manifest(path, step)
+    except ValueError as e:
+        raise bundle.CorruptBundleError(
+            path, step, [f"manifest unparseable: {e}"],
+            bundle.quarantine_step(path, step)) from e
+    extra = manifest.get("extra", {})
+    if extra.get("kind") != kind:
         raise ValueError(
-            f"{path!r} is not a HilbertIndex checkpoint (kind={extra.get('kind')!r})"
+            f"{path!r} is not a HilbertIndex checkpoint of kind {kind!r} "
+            f"(kind={extra.get('kind')!r})"
         )
     names = [k for k in LEAF_NAMES if k != "points" or extra.get("has_points")]
-    arrays, _ = bundle.restore(path, step, names)
-    return index_from_arrays(arrays, extra["config"], device=dev)
+    extra_names = list(extra.get("extra_arrays", []))
+    arrays, _ = bundle.restore(path, step, names + extra_names)
+    index = index_from_arrays(arrays, extra["config"], device=dev)
+    return index, {k: arrays[k] for k in extra_names}, extra

@@ -33,7 +33,8 @@ from repro_torch.core import search as search_lib
 from repro_torch.core.types import GraphParams, SearchParams
 from repro_torch.index.config import IndexConfig
 
-__all__ = ["HilbertIndex", "build_with_timings", "resolve_device", "BACKENDS"]
+__all__ = ["HilbertIndex", "build_with_timings", "resolve_device",
+           "save_index_bundle", "BACKENDS", "LEAF_NAMES"]
 
 # "kernel": the wrappers of repro_torch.kernels (CUDA kernels on the card,
 # their plain versions for CPU tensors) — the counterpart of the JAX
@@ -42,6 +43,23 @@ BACKENDS = ("kernel", "ref")
 
 _FORMAT_VERSION = 2
 KIND = "hilbert_index"
+
+# Leaf name -> dtype of the port's tensor (32-bit words are carried as int32).
+LEAF_NAMES = {
+    "forest.perms": np.int32,
+    "forest.flips": np.bool_,
+    "forest.orders": np.int32,
+    "forest.directories": np.int32,
+    "forest.lo": np.float32,
+    "forest.hi": np.float32,
+    "quant.boundaries": np.float32,
+    "quant.centroids": np.float32,
+    "codes_master": np.int32,
+    "sketches_master": np.int32,
+    "master_order": np.int32,
+    "master_rank": np.int32,
+    "points": np.float32,
+}
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -301,27 +319,50 @@ class HilbertIndex:
         Keeps the previous step as one generation of grace.  Returns the
         final step directory.
         """
-        extra = {
-            "kind": KIND,
-            "format_version": _FORMAT_VERSION,
-            "config": self.config.to_dict(),
-            "has_points": self.points is not None,
-            "n_points": int(self.n_points),
-            "dim": int(self.dim),
-            "extra_arrays": [],
-        }
-        prev = bundle.latest_step(path)
-        step = 0 if prev is None else prev + 1
-        final = bundle.save(path, step, self.array_bundle(), extra)
-        bundle.prune_steps(path, {step, prev})
-        return final
+        return save_index_bundle(self, path)
 
     @classmethod
     def load(cls, path: str, *, device: DeviceLike = None) -> "HilbertIndex":
-        """Load the newest step saved by either package; fully self-describing."""
-        from repro_torch.index.convert import index_from_jax_bundle
+        """Load the newest verifiable step saved by either package; a step
+        that fails verification is quarantined and the next older one is
+        tried."""
+        from repro_torch.index.convert import load_index_bundle
 
-        return index_from_jax_bundle(path, device=device)
+        return load_index_bundle(path, device=device)[0]
+
+
+def save_index_bundle(index: HilbertIndex, path: str, *, kind: str = KIND,
+                      extra_arrays: Optional[Dict[str, np.ndarray]] = None,
+                      extra_meta: Optional[Dict] = None) -> str:
+    """Persist an index plus optional sidecar arrays as ONE atomic bundle.
+
+    The layout of ``repro.index.facade.save_index_bundle``: a fresh step per
+    save, the previous one kept as a generation of grace.  Returns the
+    final step directory.
+    """
+    arrays = dict(index.array_bundle())
+    for k, v in (extra_arrays or {}).items():
+        if k in LEAF_NAMES:
+            raise ValueError(f"extra array name {k!r} collides with an index leaf")
+        arrays[k] = np.asarray(v)
+    extra = {
+        "kind": kind,
+        "format_version": _FORMAT_VERSION,
+        "config": index.config.to_dict(),
+        "has_points": index.points is not None,
+        "n_points": int(index.n_points),
+        "dim": int(index.dim),
+        "extra_arrays": sorted((extra_arrays or {}).keys()),
+    }
+    for k in extra_meta or {}:
+        if k in extra:
+            raise ValueError(f"extra_meta key {k!r} collides with a reserved key")
+    extra.update(extra_meta or {})
+    prev = bundle.latest_step(path)
+    step = 0 if prev is None else prev + 1
+    final = bundle.save(path, step, arrays, extra)
+    bundle.prune_steps(path, {step, prev})
+    return final
 
 
 def build_with_timings(

@@ -73,3 +73,52 @@ def test_wrappers_reject_mixed_devices(gen):
     with pytest.raises(ValueError):
         qdist_windows(q, torch.zeros((2, 3, 1), dtype=torch.int32),
                       torch.zeros((8, 16), device="cuda"))
+
+
+def test_streamed_mutable_index_on_card_equals_cpu(gen):
+    """The same inserts, deletes, seals, tier merges and compaction on the
+    card and on the CPU: every state array bit-equal, search within the
+    contract (queries off the point set)."""
+    import numpy as np
+
+    from repro_torch.data import ann_datasets
+    from repro_torch.index import (ForestConfig, IndexConfig, MutableHilbertIndex,
+                                   SearchParams)
+
+    data, queries = ann_datasets.lowrank_dataset_with_queries(3000, 32, 64,
+                                                              n_clusters=8, seed=0)
+    cfg = IndexConfig(forest=ForestConfig(n_trees=4, bits=4, key_bits=128,
+                                          leaf_size=16), seal_pow2=True)
+    params = SearchParams(k1=16, k2=64, h=1, k=10)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(0)
+        mut = MutableHilbertIndex(cfg, buffer_capacity=256, max_segments=3, device=dev)
+        mut.bulk_load(data[:1000])
+        for s in range(1000, 3000, 200):
+            mut.insert(data[s : s + 200])
+            mut.delete(rng.choice(mut.n_live + mut.n_deleted, 20, replace=False))
+        res = []
+        for compact in (False, True):
+            if compact:
+                mut.compact()
+            ids, d2 = mut.search(queries, params)
+            assert ids.device.type == dev
+            segs = [(s.gen, s.n_valid, s.ids, s.index.array_bundle())
+                    for s in mut.segments]
+            res.append((mut._alive.copy(), mut._next_id, segs, ids.cpu(), d2.cpu()))
+        out[dev] = res
+    for (galive, gnext, gsegs, gids, gd), (calive, cnext, csegs, cids, cd) in zip(
+            out["cuda"], out["cpu"]):
+        assert np.array_equal(galive, calive) and gnext == cnext
+        assert len(gsegs) == len(csegs)
+        for (gg, gv, gi, ga), (cg, cv, ci, ca) in zip(gsegs, csegs):
+            assert (gg, gv) == (cg, cv) and np.array_equal(gi, ci)
+            assert sorted(ga) == sorted(ca)
+            for k in ga:
+                assert ga[k].dtype == ca[k].dtype and np.array_equal(ga[k], ca[k]), k
+        torch.testing.assert_close(gd, cd, rtol=DIST_RTOL, atol=DIST_ATOL)
+        mism = gids != cids
+        for r, c in zip(*torch.nonzero(mism, as_tuple=True)):
+            tied = torch.isclose(cd[r], cd[r, c], atol=1e-4, rtol=0)
+            assert gids[r, c] in set(cids[r, tied].tolist())

@@ -26,7 +26,7 @@ from repro_torch.checkpoint import bundle
 from repro_torch.data import ann_datasets as tdata
 from repro_torch.index import (ForestConfig, HilbertIndex, IndexConfig,
                                SearchParams, build_with_timings,
-                               index_from_arrays, index_from_jax_bundle)
+                               index_from_arrays, load_index_bundle)
 from test_kernels_integration import (DIST_ATOL, DIST_RTOL,
                                       _assert_ids_equal_up_to_distance_ties)
 
@@ -154,8 +154,40 @@ def test_bundles_cross_load_both_ways(tmp_path, dataset, jax_index):
     assert manifest["extra"] == jmanifest["extra"]
 
     jres = jback.search(jnp.asarray(queries), JSearchParams(**_PARAMS), backend="xla")
-    tres = index_from_jax_bundle(tpath, device="cpu").search(queries, params)
+    tres = load_index_bundle(tpath, device="cpu")[0].search(queries, params)
     _assert_results_match(jres, tres)
+
+
+@pytest.mark.parametrize("saver", ["jax", "torch"])
+def test_bitflipped_newest_step_is_quarantined_in_both_packages(tmp_path, jax_index,
+                                                                saver):
+    """One flipped byte in the newest ``host0.npz``: each package moves that
+    step aside as ``.quarantine`` and loads step 0 (``BadZipFile`` from a lazy
+    read used to escape the port's load)."""
+    import shutil
+
+    src = str(tmp_path / "saved")
+    index = (jax_index if saver == "jax" else
+             index_from_arrays(_jax_arrays(jax_index), jax_index.config.to_dict(),
+                               device="cpu"))
+    index.save(src)
+    index.save(src)
+    npz = os.path.join(src, "step_00000001", "host0.npz")
+    with open(npz, "r+b") as f:
+        f.seek(os.path.getsize(npz) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0x10]))
+    jpath, tpath = str(tmp_path / "for_jax"), str(tmp_path / "for_torch")
+    shutil.copytree(src, jpath)
+    shutil.copytree(src, tpath)
+    jloaded = JIndex.load(jpath)
+    tloaded = HilbertIndex.load(tpath, device="cpu")
+    for path in (jpath, tpath):
+        assert sorted(os.listdir(path)) == ["step_00000000",
+                                            "step_00000001.quarantine"]
+    _assert_same_arrays(_jax_arrays(jax_index), _jax_arrays(jloaded))
+    _assert_same_arrays(_jax_arrays(jax_index), tloaded.array_bundle())
 
 
 def test_v1_bundle_is_repacked_and_digests_are_checked(tmp_path, dataset, jax_index):
@@ -214,6 +246,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "from repro_torch.core import knn_graph, search\n"
         "g, _ = idx.knn_graph(GraphParams(n_orders=2, k1=8, k2=8, k=3))\n"
         "assert g.shape == (500, 3) and gooaq.TABLE2[0].k == 15\n"
+        "from repro_torch.index import MutableHilbertIndex\n"
+        "import repro_torch.testing, repro_torch.checkpoint.wal\n"
+        "m = MutableHilbertIndex(cfg, buffer_capacity=64, device='cpu')\n"
+        "m.insert(x[:100]); m.delete([3])\n"
+        "assert m.search(x[:5], SearchParams(k1=8, k2=16, h=1, k=3))[0].shape == (5, 3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
