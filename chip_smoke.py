@@ -16,9 +16,28 @@ points:
   0.5 % deletes and a 2048-query search every 65,536 rows (seals and tier
   merges); recall@30 beside a fresh build's, ``compact()`` bit-equal to a
   fresh build over the live points, save -> load and WAL replay bit-equal.
+* Serving engine (phase ``engine``): ``RetrievalEngine`` over a
+  ``MutableHilbertIndex`` with the LSM forest (buffer 65,536, up to 16
+  segments, no WAL) bulk-loaded with 2,500,000 rows, two serve threads,
+  background maintenance (compaction on a thread) and a ``MetricsServer``,
+  as ``benchmarks/serving.py``'s ``run_phase`` drives it: three windows of
+  4 client threads sending 256-query requests — ``baseline`` (200
+  requests, no writes), ``churn_maintained`` (a writer inserts 4096 rows
+  every 0.25 s and deletes the batch it inserted two batches before; at
+  least 400 requests and 2 swaps, at most 120 s) and ``probe`` (tracing
+  on, a 25 % recall probe held to an offline exact evaluation, 100
+  requests).  Then a last forced maintenance: every acknowledged,
+  undeleted id is live and no other, and a 2048-query search equals a
+  fresh build over the live points bit for bit; ``/metrics``,
+  ``/metrics.json`` and ``/trace`` are scraped over HTTP.
 * Task 2: ``HilbertIndex.build`` with the GOOAQ forest and
   ``.knn_graph(gooaq.TABLE2[0])`` (80 orders, k1 96, k2 60, k 15);
   recall@15 of 10,000 sampled rows against exact neighbours.
+
+Before them, phase ``device_parity_engine`` runs the same engine
+operations on the CPU and on the card at 20,000 rows (step-mode searches,
+writes, a forced maintenance in a thread and in a compactor child on the
+same device): state bit-equal between devices and modes.
 
 Each phase prints one JSON line; the line before the last is the kernel
 table, the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -81,6 +100,36 @@ LSM_DELETE = 0.005  # share of the live ids deleted per round
 LSM_QUERIES = 2048
 LSM_TAIL = 4096  # rows inserted after the last save (the WAL tail)
 LSM_TAIL_DELETES = 1000
+
+# The serving engine (phase ``engine``): benchmarks/serving.py's run_phase
+# on the LSM configuration at this card's size — one bulk segment, a write
+# buffer of 65,536 rows and up to 16 segments, no WAL; maintenance when
+# more than 4 segments, half the ids dead, or a segment tombstoned past
+# its stage-2 pool; two serve threads and 4 clients sending 256-query
+# requests; a writer inserting 4096 rows every 0.25 s and deleting the
+# batch it inserted two batches before (a seal about every 4 s).
+ENGINE_BUFFER = 1 << 16
+ENGINE_MAX_SEGMENTS = 16
+ENGINE_CLIENTS = 4
+ENGINE_REQUEST = 256  # queries per request
+ENGINE_WRITE_BATCH = 4096
+ENGINE_WRITE_PAUSE_S = 0.25
+ENGINE_BASELINE_REQUESTS = 200
+ENGINE_CHURN_REQUESTS = 400
+ENGINE_CHURN_SWAPS = 2
+ENGINE_CHURN_CAP_S = 120.0
+ENGINE_PROBE_REQUESTS = 100
+ENGINE_PROBE = dict(fraction=0.25, seed=0)
+ENGINE_RECALL_TOL = 0.02  # online vs offline recall (repro's own criterion)
+ENGINE_CHECK_QUERIES = 2048
+# Series the scrape must find (scripts/metrics_smoke.py's CORE_SERIES).
+ENGINE_SERIES = [
+    "engine_admitted_total", "engine_completed_total", "engine_batches_total",
+    "engine_swaps_total", "engine_maintenance_runs_total", "engine_recall_at_k",
+    "engine_recall_samples_total", "engine_segments", "engine_queue_depth",
+    "engine_request_ms", "engine_queue_wait_ms", "index_dispatches_total",
+    "index_recompiles_total",
+]
 
 KERNEL_REPS = 20  # timed runs per kernel (after warm-up)
 PARITY_ROWS = 20_000  # rows of the cuda-vs-cpu build and graph checks
@@ -383,6 +432,7 @@ def phase_device_parity(torch, cfg, lsm_cfg, n: int, seed: int):
     torch.testing.assert_close(gg[1], cg[1], rtol=DIST_RTOL, atol=DIST_ATOL)
     assert_ids_equal_up_to_ties(cg[0], gg[0], cg[1])
     phase_device_parity_lsm(torch, lsm_cfg, pts, seed)
+    phase_device_parity_engine(torch, lsm_cfg, pts, seed)
 
 
 def phase_device_parity_lsm(torch, cfg, pts, seed: int):
@@ -479,17 +529,22 @@ def device_time(prof, top: int):
     return sum(r[0] for r in kernels), fmt(kernels), fmt(ops), copies
 
 
-def phase_profile(torch, search, phase: str = "profile", top: int = 12):
+def phase_profile(torch, search, phase: str, *, cpu_ops: bool, top: int = 12):
     """Device time by kernel over one warm ``search()``, its host<->device
     copies, and the device's busy share.
 
     The profiler's host overhead lengthens the wall time, so the busy share
-    read here is a lower bound.
+    read here is a lower bound, and it is lower with ``cpu_ops``: that also
+    records the launching ops (``top_ops``), at the cost of many more
+    events to collect.  Without it only CUDA activity is recorded.
     """
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        activities.insert(0, ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         search()
         torch.cuda.synchronize()
@@ -497,7 +552,8 @@ def phase_profile(torch, search, phase: str = "profile", top: int = 12):
     device_ms, kernels, ops, copies = device_time(prof, top)
     emit({"phase": phase, "wall_ms": wall_ms, "device_ms": device_ms,
           "busy_share": device_ms / wall_ms if device_ms else None,
-          "copies": copies, "top_kernels": kernels, "top_ops": ops})
+          "copies": copies, "top_kernels": kernels, "top_ops": ops,
+          "profile_s": time.perf_counter() - t0})
 
 
 def phase_data(torch, n: int, nq: int, seed: int):
@@ -569,7 +625,8 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
           "max_abs_dist_diff": float((dists - dists_r).abs().max()),
           "plain_route_ms_per_query": ref_s * 1e3 / nq})
 
-    phase_profile(torch, lambda: index.search(queries, params))
+    phase_profile(torch, lambda: index.search(queries, params), "profile",
+                  cpu_ops=True)
 
     path = os.path.join(ROOT, "build", "smoke_index")
     shutil.rmtree(path, ignore_errors=True)
@@ -696,7 +753,7 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
         stream_ids = ids
         # Where a streamed search's time goes: segments, buffer, host copies.
         phase_profile(torch, lambda: mut.search(q, params, allow_rewrite=False),
-                      "lsm_profile")
+                      "lsm_profile", cpu_ops=False)
 
         t0 = time.perf_counter()
         mut.compact()
@@ -778,6 +835,511 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
     gc.collect()
     torch.cuda.empty_cache()
     return {"lsm": launches}
+
+
+def phase_device_parity_engine(torch, cfg, pts, seed: int):
+    """The same engine operations on the CPU and on the card: ragged
+    step-mode searches, inserts and deletes through the engine, then a
+    forced maintenance in a thread and, on the card, from the same state
+    in a compactor child on the card.  State bit-equal between devices
+    and between modes, searches within the contract; ``pipelined_search``
+    bit-identical to ``search`` on the card."""
+    import numpy as np
+
+    from repro_torch.data import ann_datasets
+    from repro_torch.index import MutableHilbertIndex, SearchParams
+    from repro_torch.serve import RetrievalEngine, pipelined_search
+
+    n = pts.shape[0]
+    queries = ann_datasets.lowrank_embeddings(256, 384, seed=seed + 2)
+    params = SearchParams(k1=48, k2=384, h=2, k=30)
+    cuts = [0, 3, 40, 41, 128, 200, 256]
+    out = {}
+    for key, dev in (("gpu", "cuda"), ("cpu", "cpu")):
+        rng = np.random.default_rng(seed)
+        if key == "gpu":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mut = MutableHilbertIndex(cfg, buffer_capacity=2048, max_segments=3,
+                                  device=dev)
+        mut.bulk_load(pts[: n // 2])
+        eng = RetrievalEngine(mut, params, max_batch=128, maintenance=None)
+        searches = []
+
+        def served():
+            ts = [eng.submit(queries[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+            while eng.step():
+                pass
+            searches.append(tuple(np.concatenate([t.result(0)[i] for t in ts])
+                                  for i in (0, 1)))
+
+        served()
+        for i, s in enumerate(range(n // 2, n, 1000)):
+            eng.insert(pts[s : s + 1000])
+            if i % 2:
+                eng.delete(rng.choice(mut.n_live + mut.n_deleted, 100, replace=False))
+        served()
+        engines = [eng]
+        if key == "gpu":
+            engines.append(RetrievalEngine(mut.snapshot(), params, maintenance=None,
+                                           compaction="subprocess"))
+        if not all(e.maintain_once(force=True) for e in engines):
+            raise AssertionError(f"{dev}: a forced maintenance did not swap")
+        served()
+        res = {"thread": lsm_state(eng.index), "searches": searches,
+               "s": time.perf_counter() - t0}
+        if key == "gpu":
+            res["subprocess"] = lsm_state(engines[1].index)
+            res["child"] = engines[1].last_swap_timeline["compactor_phases"]
+            torch.cuda.synchronize()
+            res["parent_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            want = eng.index.search(queries, params, query_chunk=64)
+            got = pipelined_search(eng.index, queries, params, query_chunk=64)
+            res["pipelined_bit_identical"] = (torch.equal(want[0], got[0])
+                                              and torch.equal(want[1], got[1]))
+        out[key] = res
+    gpu, cpu = out["gpu"], out["cpu"]
+    report = {
+        "phase": "device_parity_engine", "n": n, "gpu_s": gpu["s"], "cpu_s": cpu["s"],
+        "differ_devices": lsm_differ(cpu["thread"], gpu["thread"]),
+        "differ_modes": lsm_differ(gpu["thread"], gpu["subprocess"]),
+        "max_abs_dist_diff": [float(np.abs(g[1] - c[1]).max())
+                              for g, c in zip(gpu["searches"], cpu["searches"])],
+        "pipelined_bit_identical": gpu["pipelined_bit_identical"],
+        "child_gpu": {k: gpu["child"].get(k) for k in
+                      ("child_ms", "child_phases_s", "child_peak_device_bytes")},
+        "child_peak_gib": gpu["child"]["child_peak_device_bytes"] / 2**30,
+        "parent_peak_gib": gpu["parent_peak_gib"],
+    }
+    emit(report)
+    for key in ("differ_devices", "differ_modes"):
+        if report[key]:
+            raise AssertionError(f"engine parity: {key} {report[key]}")
+    if not report["pipelined_bit_identical"]:
+        raise AssertionError("pipelined_search differs from search on the card")
+    if report["child_peak_gib"] <= 0:
+        raise AssertionError("the compactor child of a CUDA index did not run on "
+                             "the card")
+    for (gi, gd), (ci, cd) in zip(gpu["searches"], cpu["searches"]):
+        torch.testing.assert_close(torch.from_numpy(gd), torch.from_numpy(cd),
+                                   rtol=DIST_RTOL, atol=DIST_ATOL)
+        assert_ids_equal_up_to_ties(ci, gi, cd)
+
+
+def parse_prometheus(text: str) -> dict:
+    """{bare metric name: samples} of a Prometheus text exposition; every
+    non-comment line must read ``name{labels} value``."""
+    import re
+
+    line_re = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? (NaN|[-+0-9.eE]+)$")
+    names = {}
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("#"):
+            continue
+        if not line_re.match(line):
+            raise AssertionError(f"unparseable exposition line: {line!r}")
+        bare = line.split("{", 1)[0].split(" ", 1)[0]
+        names[bare] = names.get(bare, 0) + 1
+    return names
+
+
+def _window_stats(tickets, batch_rec, compactions, t_start, t_end):
+    """Latency percentiles, throughput and the batches that overlapped a
+    shadow compaction, from one window's tickets."""
+    import numpy as np
+
+    from repro_torch.obs import percentiles
+
+    lat = [t.latency_ms for t in tickets]
+    batches = {}
+    for t in tickets:  # one batch: the tickets sharing its batched_at
+        batches.setdefault(t.batched_at, max(batches.get(t.batched_at, 0.0),
+                                             t.completed_at))
+    spans = [(c0, t_end if c1 is None else c1) for c0, c1 in compactions]
+    overlap = [(end - start) * 1e3 for start, end in batches.items()
+               if any(start < c1 and end > c0 for c0, c1 in spans)]
+    overlap_req = [t.latency_ms for t in tickets
+                   if any(t.submitted_at < c1 and t.completed_at > c0
+                          for c0, c1 in spans)]
+    seconds = t_end - t_start
+    rows = sum(int(t.queries.shape[0]) for t in tickets)
+    return {
+        "requests": len(tickets), "queries": rows, "seconds": seconds,
+        "qps": rows / seconds, "requests_per_s": len(tickets) / seconds,
+        "request_ms": percentiles(lat), "search_ms": percentiles(batch_rec.samples()),
+        "batches": len(batches), "search_batches": batch_rec.count,
+        "overlap_batches": len(overlap),
+        "overlap_batch_ms": percentiles(overlap) if overlap else None,
+        "overlap_request_ms": percentiles(overlap_req) if overlap_req else None,
+        "max_request_ms": float(np.max(lat)),
+    }
+
+
+def phase_engine(torch, cfg, params, points, queries, seed: int,
+                 launch_lock: bool = True):
+    """The serving engine at full width under concurrent writes; returns the
+    kernel launches of its path (bulk load, three windows, the last forced
+    maintenance).
+
+    ``launch_lock=False`` lets both serve threads launch their searches at
+    once (the engine's one-at-a-time launch lock replaced by a no-op), for
+    the comparison in ``chip_engine_ab.py``.
+    """
+    import contextlib
+    import gc
+    import threading
+    import urllib.request
+    from collections import deque
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.index import HilbertIndex, MutableHilbertIndex
+    from repro_torch.obs import (LatencyRecorder, MetricsServer, RecallProbe,
+                                 RecallProbeConfig, accounting_delta,
+                                 accounting_snapshot, recall_at_k)
+    from repro_torch.serve import MaintenancePolicy, RetrievalEngine
+
+    n = points.shape[0]
+    bulk = n * 5 // 6
+    q_host = queries.cpu().numpy()
+    stream = points[bulk:].cpu().numpy()  # the writer's rows, wrapped
+    cap = n + 4_000_000
+    src_row = np.full(cap, -1, np.int64)  # external id -> row of `points`
+    live = np.zeros(cap, np.bool_)  # acknowledged and not deleted
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    reset_launches()
+    index = MutableHilbertIndex(cfg, buffer_capacity=ENGINE_BUFFER,
+                                max_segments=ENGINE_MAX_SEGMENTS)
+    t0 = time.perf_counter()
+    ids = index.bulk_load(points[:bulk])
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    src_row[ids] = ids
+    live[ids] = True
+    eng = RetrievalEngine(index, params, maintenance=MaintenancePolicy(
+        max_segments=4, max_tombstone_ratio=0.5, poll_interval_s=0.05),
+        serve_threads=2, compaction="thread", start=True)
+    if not launch_lock:
+        eng._launch_lock = contextlib.nullcontext()
+    server = MetricsServer(port=0)
+    compactions = []  # [start, end or None] of every shadow compaction
+    inner_compact = eng._compact_shadow
+
+    def timed_compact(*args, **kwargs):
+        span_ = [time.perf_counter(), None]
+        compactions.append(span_)
+        try:
+            return inner_compact(*args, **kwargs)
+        finally:
+            span_[1] = time.perf_counter()
+
+    eng._compact_shadow = timed_compact
+    emit({"phase": "engine_setup", "rows": bulk, "bulk_load_s": bulk_s,
+          "metrics_port": server.port, "launch_lock": launch_lock})
+
+    next_q = [0]
+    q_lock = threading.Lock()
+
+    def request_queries():
+        with q_lock:
+            s = next_q[0]
+            next_q[0] = (s + ENGINE_REQUEST) % (q_host.shape[0] - ENGINE_REQUEST)
+        return q_host[s : s + ENGINE_REQUEST]
+
+    def run_clients(done, until):
+        """ENGINE_CLIENTS closed-loop clients until ``until(done)``."""
+        tickets, lock, errors = [], threading.Lock(), []
+
+        def client():
+            try:
+                while not until(len(tickets)):
+                    t = eng.submit(request_queries())
+                    t.result(timeout=600)
+                    with lock:
+                        tickets.append(t)
+            except BaseException as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client) for _ in range(ENGINE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"engine clients failed: {errors[:1]}")
+        return tickets
+
+    def exact_live(alive_ids, q, k):
+        """Exact top-k external ids of host queries ``q`` over the rows that
+        ``src_row`` records for ``alive_ids``, in float64 on the card."""
+        rows = torch.from_numpy(src_row[alive_ids]).to(points.device)
+        pts = points[rows].double()
+        psq = (pts * pts).sum(1)[None, :]
+        top = []
+        for s in range(0, q.shape[0], 256):  # (256, n) float64 at a time
+            qd = torch.from_numpy(q[s : s + 256]).to(points.device).double()
+            d2 = (qd * qd).sum(1, keepdim=True) - 2.0 * (qd @ pts.T) + psq
+            top.append(torch.topk(d2, k, dim=1, largest=False).indices.cpu().numpy())
+            del d2
+        return alive_ids[np.concatenate(top)]
+
+    # Writer: the rolling expiry of benchmarks/serving.py.
+    w_stop, w_errors = threading.Event(), []
+    writes = {"inserted": 0, "deleted": 0, "batches": 0}
+
+    def writer():
+        pos, recent = 0, deque()
+        try:
+            while not w_stop.is_set():
+                if pos + ENGINE_WRITE_BATCH > stream.shape[0]:
+                    pos = 0
+                got = eng.insert(stream[pos : pos + ENGINE_WRITE_BATCH])
+                src_row[got] = bulk + pos + np.arange(got.size)
+                live[got] = True
+                recent.append(got)
+                writes["inserted"] += got.size
+                writes["batches"] += 1
+                if len(recent) > 2:
+                    old = recent.popleft()
+                    if eng.delete(old) != old.size:
+                        raise AssertionError("expiry did not tombstone its batch")
+                    live[old] = False
+                    writes["deleted"] += old.size
+                pos += ENGINE_WRITE_BATCH
+                w_stop.wait(ENGINE_WRITE_PAUSE_S)
+        except BaseException as e:  # surfaced below
+            w_errors.append(e)
+
+    # Segment count, sampled while the windows run.
+    seen = {"max": 0}
+    m_stop = threading.Event()
+
+    def monitor():
+        while not m_stop.wait(0.1):
+            seen["max"] = max(seen["max"], eng.maintenance_stats()["n_segments"])
+
+    mon = threading.Thread(target=monitor, daemon=True)
+    mon.start()
+
+    # Warm-up: every pow2 batch shape the windows can form, unmeasured.
+    warm = run_clients(None, lambda k: k >= 2 * ENGINE_CLIENTS)
+    acct0 = accounting_snapshot()
+    results, windows_launches = {}, {}
+    kept = []  # (queries, served ids, k, snapshot) of every batch the probe kept
+    w_thread = threading.Thread(target=writer)
+
+    def window(name, until, before=None):
+        swaps0 = eng.metrics.counter("swaps")
+        seen["max"] = eng.maintenance_stats()["n_segments"]
+        eng.metrics.batch_latency = LatencyRecorder()
+        launches0 = read_launches(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.perf_counter()
+        if before is not None:
+            before()
+        tickets = run_clients(None, until)
+        t_end = time.perf_counter()
+        comp = [tuple(c) for c in list(compactions)
+                if c[0] < t_end and (c[1] is None or c[1] > t_start)]
+        stats = _window_stats(tickets, eng.metrics.batch_latency, comp,
+                              t_start, t_end)
+        launches = {k: v - launches0[k] for k, v in read_launches(torch).items()}
+        delta = accounting_delta(acct0, accounting_snapshot())
+        stats.update({
+            "phase": "engine_window", "window": name, "launch_lock": launch_lock,
+            "swaps": eng.metrics.counter("swaps") - swaps0,
+            "max_segments_seen": seen["max"],
+            "compaction_s": [c1 - c0 for c0, c1 in comp if c1 is not None],
+            "compactions_overlapping": len(comp),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "accounting_delta": delta,
+            "writes": dict(writes),
+            "maintenance": {k: eng.metrics.counter(k) for k in (
+                "maintenance_runs", "maintenance_failures", "maintenance_timeouts")},
+            "last_maintenance_error": repr(eng.last_maintenance_error),
+            "last_swap_timeline": {k: v for k, v in (eng.last_swap_timeline or {}).items()
+                                   if k.endswith("_ms") or k in ("log_depth",
+                                                                 "replay_rounds")},
+        })
+        emit(stats)
+        require_launched(f"engine {name}", launches,
+                         ["hamming_rows", "qdist_windows", "pack_bits"])
+        if delta["backend_compiles_total"] != 0:
+            raise AssertionError(f"engine {name}: kernel builds after warm-up: {delta}")
+        results[name] = stats
+        windows_launches[name] = launches
+        return tickets
+
+    try:
+        window("baseline", lambda k: k >= ENGINE_BASELINE_REQUESTS)
+        t_churn = [0.0]
+
+        def churn_until(k):
+            swaps = eng.metrics.counter("swaps") - churn_swaps0
+            over = time.perf_counter() - t_churn[0] > ENGINE_CHURN_CAP_S
+            return over or (k >= ENGINE_CHURN_REQUESTS and swaps >= ENGINE_CHURN_SWAPS)
+
+        churn_swaps0 = eng.metrics.counter("swaps")
+
+        def start_writer():
+            t_churn[0] = time.perf_counter()
+            w_thread.start()
+
+        window("churn_maintained", churn_until, before=start_writer)
+
+        # Probe window: tracing on, a 25 % recall probe; every kept batch is
+        # also recorded with a snapshot for the offline evaluation.
+        k_lock = threading.Lock()
+        probe = RecallProbe(RecallProbeConfig(window=1 << 20, **ENGINE_PROBE))
+        inner_offer = probe.offer
+
+        def offer(q, got_ids, k, idx):
+            # called under the engine's read lock: idx is the served state
+            with k_lock:
+                ok = inner_offer(q, got_ids, k, idx)
+                if ok:
+                    kept.append((q.copy(), got_ids.copy(), k, idx.snapshot()))
+            return ok
+
+        probe.offer = offer
+        obs.default_tracer().clear()
+        obs.enable()
+
+        def attach_probe():
+            eng.recall_probe = probe
+
+        window("probe", lambda k: k >= ENGINE_PROBE_REQUESTS, before=attach_probe)
+        w_stop.set()
+        w_thread.join(120)
+        if w_errors or w_thread.is_alive():
+            raise AssertionError(f"engine writer failed: {w_errors[:1]}")
+        if results["churn_maintained"]["swaps"] < ENGINE_CHURN_SWAPS:
+            raise AssertionError(f"only {results['churn_maintained']['swaps']} "
+                                 "swaps in the churn window")
+        eng.recall_probe = None
+        want_samples = sum(q.shape[0] for q, _, _, _ in kept)
+        deadline = time.perf_counter() + 300
+        while len(probe._window) < want_samples:  # the maintainer's pass too
+            probe.score_pending()
+            if time.perf_counter() > deadline:
+                raise AssertionError("the recall probe left sampled batches unscored")
+            time.sleep(0.05)
+        online = probe.recall()
+        # Offline: exact neighbours over the live set this script recorded
+        # itself (each snapshot's tombstones, `src_row` for the rows), not
+        # over the index's own `live_parts`; and each kept batch searched
+        # again on its snapshot, which the served ids must equal.
+        t0 = time.perf_counter()
+        per_query, served_equal, layouts = [], 0, []
+        for q, got_ids, k, snap in kept:
+            snap_ids = snap.search(q, params, backend=eng.backend,
+                                   query_chunk=eng.query_chunk, allow_rewrite=False)[0]
+            served_equal += int(np.array_equal(snap_ids.cpu().numpy(), got_ids))
+            alive = np.flatnonzero(snap._alive[: snap._next_id])
+            per_query.append(recall_at_k(got_ids, exact_live(alive, q, k)))
+            # what each batch was served from: (rows, real rows, dead) per
+            # segment, then the buffer's rows; beside the batch's recall
+            layouts.append({"recall": float(per_query[-1].mean()),
+                            "segments": [(s.n_points, s.n_real, snap._segment_dead(s))
+                                         for s in snap.segments],
+                            "buffered": snap.n_buffered})
+        offline = float(np.concatenate(per_query).mean()) if per_query else float("nan")
+        probe_check = {"phase": "engine_probe_check", "batches_kept": len(kept),
+                       "online_recall_at_30": online, "offline_recall_at_30": offline,
+                       "served_equals_snapshot_search": served_equal,
+                       "by_batch": layouts,
+                       "diff": abs(online - offline), "tolerance": ENGINE_RECALL_TOL,
+                       "offline_s": time.perf_counter() - t0,
+                       "batches_dropped": obs.default_registry().snapshot().get(
+                           "engine_recall_batches_dropped_total")}
+        emit(probe_check)
+        kept.clear()
+        if not (probe_check["batches_kept"] and probe_check["diff"] <= ENGINE_RECALL_TOL):
+            raise AssertionError(f"probe recall {online} disagrees with the offline "
+                                 f"evaluation {offline}")
+        if served_equal != probe_check["batches_kept"]:
+            raise AssertionError(f"{probe_check['batches_kept'] - served_equal} served "
+                                 "batches differ from their snapshot's own search")
+
+        # Last forced maintenance, then the checks.
+        t0 = time.perf_counter()
+        if not eng.maintain_once(force=True):
+            raise AssertionError("the last forced maintenance did not swap")
+        final_s = time.perf_counter() - t0
+        m_stop.set()
+        launches = read_launches(torch)
+        require_launched("engine", launches,
+                         ["hamming_rows", "qdist_windows", "pack_bits"])
+        final = eng.index
+        n_ids = final._next_id
+        live_ids = np.flatnonzero(live[:n_ids])
+        alive_equal = (np.array_equal(final._alive, live[:n_ids])
+                       and not live[n_ids:].any())
+        q = queries[:ENGINE_CHECK_QUERIES]
+        cids, cd = eng.search(q)
+        live_t = torch.from_numpy(live_ids).to(points.device)
+        rows = torch.from_numpy(src_row[live_ids]).to(points.device)
+        t0 = time.perf_counter()
+        fresh = HilbertIndex.build(points[rows], cfg)
+        fresh_s = time.perf_counter() - t0
+        fids, fd = fresh.search(q, params)
+        fids = live_t[fids.long()].to(torch.int32).cpu().numpy()
+        fd = fd.cpu().numpy()
+        del fresh, rows
+        same = np.array_equal(np.sort(cd, 1), np.sort(fd, 1)) and np.array_equal(
+            cids, fids) and np.array_equal(cd, fd)
+        final_recall = float(recall_at_k(
+            cids, exact_live(live_ids, q.cpu().numpy(), params.k)).mean())
+        # Scrape the three views over HTTP.
+        scraped = {}
+        for path in ("/metrics", "/metrics.json", "/trace"):
+            with urllib.request.urlopen(server.url + path, timeout=30) as r:
+                scraped[path] = r.read().decode()
+        prom = parse_prometheus(scraped["/metrics"])
+        snap = json.loads(scraped["/metrics.json"])
+        trace = json.loads(scraped["/trace"])
+        missing = [s for s in ENGINE_SERIES if s not in prom]
+        span_names = sorted({e["name"] for e in trace["traceEvents"]})
+        emit({"phase": "engine_final", "final_maintenance_s": final_s,
+              "segments": final.n_segments, "live": int(live_ids.size),
+              "acknowledged_live_equal": alive_equal,
+              "fresh_build_s": fresh_s, "search_equals_fresh_build": same,
+              "recall_at_30": final_recall,
+              "series_missing": missing, "series": len(prom),
+              "swaps_total": snap.get("engine_swaps_total"),
+              "recall_gauge": snap.get("engine_recall_at_k"),
+              "trace_events": len(trace["traceEvents"]), "span_names": span_names,
+              "warmup_requests": len(warm), "launches": launches,
+              "accounting_delta": accounting_delta(acct0, accounting_snapshot())})
+        if not alive_equal:
+            raise AssertionError("acknowledged writes and the engine's live set differ")
+        if not same:
+            raise AssertionError("engine search after the last maintenance differs "
+                                 "from a fresh build over the live points")
+        if missing or not {"engine.batch", "engine.search", "maint.cycle"} <= set(
+                span_names):
+            raise AssertionError(f"scrape: missing series {missing} or spans "
+                                 f"{span_names}")
+    finally:
+        # The registry keeps the probe, and through its `offer` these
+        # snapshots and their segments: let them go even when a check failed.
+        kept.clear()
+        w_stop.set()
+        m_stop.set()
+        obs.disable()
+        eng.stop(drain=False)
+        server.close()
+    emit({"phase": "engine", "seconds": time.perf_counter() - t_phase,
+          "launch_lock": launch_lock,
+          "windows": {k: {x: v[x] for x in ("request_ms", "search_ms", "qps", "swaps")}
+                      for k, v in results.items()},
+          "launches": launches})
+    del eng, index, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"engine": launches}
 
 
 def phase_task2(torch, points, params, seed: int, recall_floor: float):
@@ -950,6 +1512,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches.update(phase_lsm(torch, lsm_cfg, params, points, queries, args.seed,
                               args.recall_floor))
+    torch.cuda.empty_cache()
+    launches.update(phase_engine(torch, lsm_cfg, params, points, queries, args.seed))
     del queries
     torch.cuda.empty_cache()
     launches.update(phase_task2(torch, points, graph_params, args.seed,

@@ -32,6 +32,8 @@ from repro_torch.core import quantize, sketch
 from repro_torch.core import search as search_lib
 from repro_torch.core.types import GraphParams, SearchParams
 from repro_torch.index.config import IndexConfig
+from repro_torch.obs.dispatch import dispatch_scope
+from repro_torch.obs.trace import span
 
 __all__ = ["HilbertIndex", "build_with_timings", "resolve_device",
            "save_index_bundle", "BACKENDS", "LEAF_NAMES"]
@@ -221,8 +223,9 @@ class HilbertIndex:
             bucket = _pow2_bucket(m, query_chunk)
             if bucket > m:
                 q = torch.nn.functional.pad(q, (0, 0, 0, bucket - m))
-            ids, dists = self._search_chunk(q.contiguous(), params, use_kernels,
-                                            codes_u8)
+            with dispatch_scope("hilbert.search"):
+                ids, dists = self._search_chunk(q.contiguous(), params,
+                                                use_kernels, codes_u8)
             outs_i.append(ids[:m])
             outs_d.append(dists[:m])
         return torch.cat(outs_i), torch.cat(outs_d)
@@ -385,29 +388,36 @@ def build_with_timings(
 
     _sync(dev)
     t0 = time.perf_counter()
-    if quant is None:
-        quant = quantize.fit(points, bits=qcfg.bits, sample_limit=qcfg.sample_limit)
-    codes = quantize.encode(quant, points)
-    _sync(dev)
+    with span("build.quantization", rows=int(n)), dispatch_scope(
+            "build.quantization"):
+        if quant is None:
+            quant = quantize.fit(points, bits=qcfg.bits,
+                                 sample_limit=qcfg.sample_limit)
+        codes = quantize.encode(quant, points)
+        _sync(dev)
     timings["quantization"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sketches = sketch.sketches_from_codes(codes, bits=qcfg.bits)
-    _sync(dev)
+    with span("build.sketches"), dispatch_scope("build.sketches"):
+        sketches = sketch.sketches_from_codes(codes, bits=qcfg.bits)
+        _sync(dev)
     timings["sketches"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    f = forest_lib.build_forest(points, fcfg)
-    _sync(dev)
+    with span("build.forest", n_trees=fcfg.n_trees), dispatch_scope(
+            "build.forest"):
+        f = forest_lib.build_forest(points, fcfg)
+        _sync(dev)
     timings["forest"] = time.perf_counter() - t0
 
     # Master order: an un-permuted Hilbert sort; codes/sketches rearranged.
     t0 = time.perf_counter()
-    master_order, _ = search_lib.hilbert_master_sort(points, fcfg, f.lo, f.hi)
-    master_rank = torch.empty((n,), dtype=torch.int32, device=dev)
-    master_rank.scatter_(0, master_order.long(),
-                         torch.arange(n, dtype=torch.int32, device=dev))
-    _sync(dev)
+    with span("build.master_sort"), dispatch_scope("build.master_sort"):
+        master_order, _ = search_lib.hilbert_master_sort(points, fcfg, f.lo, f.hi)
+        master_rank = torch.empty((n,), dtype=torch.int32, device=dev)
+        master_rank.scatter_(0, master_order.long(),
+                             torch.arange(n, dtype=torch.int32, device=dev))
+        _sync(dev)
     timings["master_sort"] = time.perf_counter() - t0
 
     index = HilbertIndex(

@@ -50,6 +50,8 @@ from repro_torch.index.config import IndexConfig
 from repro_torch.index.convert import load_index_bundle
 from repro_torch.index.facade import (DeviceLike, HilbertIndex, resolve_device,
                                       save_index_bundle)
+from repro_torch.obs.dispatch import dispatch_scope
+from repro_torch.obs.trace import span
 from repro_torch.testing.faults import fault_point
 
 __all__ = [
@@ -558,7 +560,9 @@ class MutableHilbertIndex(WalFacade):
                 reps = -(-target // n_valid)
                 pts = pts.repeat(reps, 1)[:target]
                 ids = np.tile(ids, reps)[:target]
-        index = HilbertIndex.build(pts, self.config, device=self.device)
+        with span("lsm.segment_build", rows=int(pts.shape[0])), \
+                dispatch_scope("lsm.segment_build"):
+            index = HilbertIndex.build(pts, self.config, device=self.device)
         seg = Segment(index=index, ids=np.ascontiguousarray(ids, np.int32),
                       gen=self._gen, n_valid=n_valid)
         self._gen += 1
@@ -624,9 +628,10 @@ class MutableHilbertIndex(WalFacade):
         Afterwards the index holds at most one segment containing exactly
         the live points in insertion order.  Returns self (chainable).
         """
-        self.flush()
-        if self.segments:
-            self._merge_segments(list(self.segments))
+        with span("lsm.compact", segments=len(self.segments)):
+            self.flush()
+            if self.segments:
+                self._merge_segments(list(self.segments))
         return self
 
     # -- serving-engine hooks ------------------------------------------------
@@ -719,9 +724,11 @@ class MutableHilbertIndex(WalFacade):
             valid = np.zeros((self.buffer_capacity,), np.bool_)
             bids = self._buf_ids[: self._buf_count]
             valid[: self._buf_count] = self._alive[bids]
-            idx, bd2 = search_lib.brute_force_topk(
-                q, torch.from_numpy(self._buf_points).to(dev),
-                torch.from_numpy(valid).to(dev), k=min(k, self.buffer_capacity))
+            with dispatch_scope("lsm.buffer_search"):
+                idx, bd2 = search_lib.brute_force_topk(
+                    q, torch.from_numpy(self._buf_points).to(dev),
+                    torch.from_numpy(valid).to(dev),
+                    k=min(k, self.buffer_capacity))
             parts_ids.append(self._buf_ids[idx.cpu().numpy()])
             parts_d.append(bd2)
         if not parts_ids:
@@ -733,7 +740,8 @@ class MutableHilbertIndex(WalFacade):
         dead = ~self._alive[np.clip(ids, 0, max(self._next_id - 1, 0))]
         d2 = torch.cat(parts_d, dim=1)
         d2 = torch.where(torch.from_numpy(dead).to(dev), torch.inf, d2)
-        return search_lib.merge_topk(torch.from_numpy(ids).to(dev), d2, k=k)
+        with dispatch_scope("lsm.merge"):
+            return search_lib.merge_topk(torch.from_numpy(ids).to(dev), d2, k=k)
 
     # -- values --------------------------------------------------------------
 

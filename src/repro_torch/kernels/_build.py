@@ -5,7 +5,9 @@ library ``build/repro_torch_kernels/<name>-<hash>.so`` under the repository
 root, keyed by a hash of the source and the flags, and built at first use.
 Missing libraries are compiled together, one nvcc process per source.
 There is no fallback: without nvcc, or when a compile fails, this raises
-with the compiler's output.
+with the compiler's output.  Each compile and each first load is a
+compile event of :mod:`repro_torch.obs.dispatch`, counted on the calling
+thread.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Sequence
+
+from repro_torch.obs.dispatch import record_compile
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "build_log", "library", "nvcc_path"]
 
@@ -82,6 +86,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, _target(n))
+            record_compile()
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
@@ -97,4 +102,6 @@ def build_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if missing."""
     build((name,))
-    return ctypes.CDLL(str(_target(name)))
+    lib = ctypes.CDLL(str(_target(name)))
+    record_compile()
+    return lib

@@ -2,9 +2,12 @@
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import threading
+from typing import Callable, Optional, Sequence
 
 import torch
+
+_launch_lock = threading.Lock()
 
 
 def check(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -32,3 +35,10 @@ def raise_on_error(kernel: str, err: int) -> None:
     """Raise if a launcher returned a nonzero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t {err}")
+
+
+def count_launch(fn: Callable) -> None:
+    """Add one to ``fn.launches`` under a lock: serve threads launch the
+    same kernel at once, and a bare ``+= 1`` can lose a count."""
+    with _launch_lock:
+        fn.launches += 1

@@ -18,7 +18,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._check import check, raise_on_error
+from repro_torch.kernels._check import check, count_launch, raise_on_error
 
 __all__ = ["pack_bits", "pack_bits_ref"]
 
@@ -67,7 +67,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     err = _launcher()(bits.data_ptr(), out.data_ptr(), n, k,
                       torch.cuda.current_stream(bits.device).cuda_stream)
     raise_on_error("pack_bits", err)
-    pack_bits.launches += 1
+    count_launch(pack_bits)
     return out
 
 

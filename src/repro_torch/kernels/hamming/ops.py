@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import sketch
 from repro_torch.kernels import _build
-from repro_torch.kernels._check import check, raise_on_error, same
+from repro_torch.kernels._check import check, count_launch, raise_on_error, same
 
 __all__ = ["hamming_rows", "hamming_rows_ref"]
 
@@ -58,7 +58,7 @@ def hamming_rows(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tenso
         torch.cuda.current_stream(queries.device).cuda_stream,
     )
     raise_on_error("hamming_rows", err)
-    hamming_rows.launches += 1
+    count_launch(hamming_rows)
     return out
 
 

@@ -19,7 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._check import check, raise_on_error, same
+from repro_torch.kernels._check import check, count_launch, raise_on_error, same
 
 __all__ = ["qdist_windows", "qdist_windows_ref"]
 
@@ -73,7 +73,7 @@ def qdist_windows(queries: torch.Tensor, packed_windows: torch.Tensor,
         torch.cuda.current_stream(queries.device).cuda_stream,
     )
     raise_on_error("qdist_windows", err)
-    qdist_windows.launches += 1
+    count_launch(qdist_windows)
     return out
 
 

@@ -122,3 +122,34 @@ def test_streamed_mutable_index_on_card_equals_cpu(gen):
         for r, c in zip(*torch.nonzero(mism, as_tuple=True)):
             tied = torch.isclose(cd[r], cd[r, c], atol=1e-4, rtol=0)
             assert gids[r, c] in set(cids[r, tied].tolist())
+
+
+def test_launch_counter_is_exact_under_two_threads(gen):
+    """Two serve threads launch the same kernel at once: the counter sees
+    every launch (a bare ``+= 1`` can lose one between read and write)."""
+    import sys
+    import threading
+
+    a, c = _words(gen, 64, 12), _words(gen, 64, 48, 12)
+    n = 2000
+    hamming_rows(a, c)  # load the library before the race
+    torch.cuda.synchronize()
+    before = hamming_rows.launches
+
+    def run():
+        for _ in range(n):
+            hamming_rows(a, c)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    assert hamming_rows.launches == before + 2 * n

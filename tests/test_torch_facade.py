@@ -251,6 +251,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "m = MutableHilbertIndex(cfg, buffer_capacity=64, device='cpu')\n"
         "m.insert(x[:100]); m.delete([3])\n"
         "assert m.search(x[:5], SearchParams(k1=8, k2=16, h=1, k=3))[0].shape == (5, 3)\n"
+        "import repro_torch.obs, repro_torch.serve, repro_torch.serve.compactor\n"
+        "from repro_torch.serve import RetrievalEngine\n"
+        "eng = RetrievalEngine(m, SearchParams(k1=8, k2=16, h=1, k=3))\n"
+        "assert eng.search(x[:5])[0].shape == (5, 3)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
