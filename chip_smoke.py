@@ -2,14 +2,20 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, holds each
-against its plain PyTorch version at the main paths' shapes, checks that
-a build, a Task-2 graph and a streamed LSM index on the card equal those
-on the CPU, then drives three paths at full width on 3,000,000 x 384
-points:
+against its plain PyTorch version at its paths' shapes, runs the kernel
+microbenchmark (phase ``kernel_bench``: ``repro_torch.benchmarks.
+kernel_bench``, the path of the dense Hamming and dense ADC kernels),
+checks that a build, a Task-2 graph and a streamed LSM index on the card
+equal those on the CPU, then drives the paths at full width on
+3,000,000 x 384 points:
 
 * Task 1: ``HilbertIndex.build`` with the README quickstart configuration
   and ``.search`` of 8192 queries; recall@30 against exact ground truth,
   the kernel route against the plain route, save -> load -> search.
+* The paper's Table 1 (phase ``table1``: ``repro_torch.benchmarks.
+  task1_table1``): its 16 rows (160 and 120 trees of the PUBMED23 forest,
+  k1 up to 4000) on the same points and the first 2048 queries, scored
+  against the exact neighbours phase ``recall`` computed.
 * LSM (phase ``lsm``): ``MutableHilbertIndex`` with the same forest and
   stored points bulk-loads 2,500,000 rows as one segment, saves, turns on
   its WAL, then streams the other 500,000 rows in inserts of 4096 with
@@ -29,7 +35,9 @@ points:
   requests).  Then a last forced maintenance: every acknowledged,
   undeleted id is live and no other, and a 2048-query search equals a
   fresh build over the live points bit for bit; ``/metrics``,
-  ``/metrics.json`` and ``/trace`` are scraped over HTTP.
+  ``/metrics.json`` and ``/trace`` are scraped over HTTP.  Device memory
+  allocated after the phase's cleanup must be within 1 GiB of its value
+  before (phase ``engine_memory``).
 * Task 2: ``HilbertIndex.build`` with the GOOAQ forest and
   ``.knn_graph(gooaq.TABLE2[0])`` (80 orders, k1 96, k2 60, k 15);
   recall@15 of 10,000 sampled rows against exact neighbours.
@@ -57,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -66,10 +75,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
-
-# Published peaks of one H100 SXM (dense, at its 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 
 # Distance contract of tests/test_kernels_integration.py.
 DIST_RTOL = 1e-5
@@ -131,6 +136,13 @@ ENGINE_SERIES = [
     "index_recompiles_total",
 ]
 
+# Phase table1: the paper's 16 Table-1 rows (repro_torch.benchmarks.
+# task1_table1) over the corpus, on this many of the queries.
+TABLE1_QUERIES = 2048
+
+# Device memory the engine phase may leave allocated after its cleanup.
+ENGINE_RETAINED_GIB = 1.0
+
 KERNEL_REPS = 20  # timed runs per kernel (after warm-up)
 PARITY_ROWS = 20_000  # rows of the cuda-vs-cpu build and graph checks
 MERGE_CHUNK = 1 << 16  # rows of one Task-2 merge pass (knn_graph's default)
@@ -139,11 +151,12 @@ MERGE_CHUNK = 1 << 16  # rows of one Task-2 merge pass (knn_graph's default)
 def kernel_fns():
     """The kernel wrappers of the port, by name (each counts its launches)."""
     from repro_torch.kernels.bitpack import pack_bits
-    from repro_torch.kernels.hamming import hamming_rows
-    from repro_torch.kernels.qdist import qdist_windows
+    from repro_torch.kernels.hamming import hamming_matrix, hamming_rows
+    from repro_torch.kernels.qdist import qdist, qdist_from_packed, qdist_windows
 
     return {"hamming_rows": hamming_rows, "qdist_windows": qdist_windows,
-            "pack_bits": pack_bits}
+            "pack_bits": pack_bits, "hamming_matrix": hamming_matrix,
+            "qdist": qdist, "qdist_from_packed": qdist_from_packed}
 
 
 def reset_launches() -> None:
@@ -165,34 +178,6 @@ def require_launched(path: str, launches: dict, names) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by) from bytes over HBM rate and ops over fp32 rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def median_ms(torch, fn, reps: int) -> float:
-    """Median device time of ``fn()`` over ``reps`` back-to-back runs.
-
-    After two warm-up calls the stream is held busy by a spin kernel while
-    the host enqueues ``reps`` runs with a CUDA event between each, so the
-    events see device time and not the host's launch latency.
-    """
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    torch.cuda._sleep(20_000_000)
-    events[0].record()
-    for i in range(reps):
-        fn()
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    times = sorted(events[i].elapsed_time(events[i + 1]) for i in range(reps))
-    return times[len(times) // 2]
 
 
 def assert_ids_equal_up_to_ties(ids_ref, ids_got, d_ref) -> int:
@@ -233,9 +218,18 @@ def phase_build(build_mod):
 
 
 def phase_kernel_parity(torch, reps: int):
+    """Every kernel against its plain version at its paths' shapes and a
+    ragged one; returns the table rows of kernels 1-3 (times included)
+    and the largest errors of kernels 4-6."""
+    from repro_torch.benchmarks import kernel_bench
+    from repro_torch.benchmarks.kernel_bench import bound, median_ms
+    from repro_torch.core.quantize import pack_codes
     from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
-    from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
-    from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
+    from repro_torch.kernels.hamming import (hamming_matrix, hamming_matrix_ref,
+                                             hamming_rows, hamming_rows_ref)
+    from repro_torch.kernels.qdist import (qdist, qdist_from_packed,
+                                           qdist_packed_ref, qdist_u8_ref,
+                                           qdist_windows, qdist_windows_ref)
 
     g = torch.Generator(device="cuda").manual_seed(1234)
     dev = "cuda"
@@ -258,8 +252,8 @@ def phase_kernel_parity(torch, reps: int):
         if qn != 37:
             b_ms, b_by = bound((qn * w + qn * k * w + qn * k) * 4, 3 * qn * k * w)
             ham_times[(qn, k, w)] = {
-                "ms": median_ms(torch, lambda: hamming_rows(a, c), reps),
-                "plain_ms": median_ms(torch, lambda: hamming_rows_ref(a, c), reps),
+                "ms": median_ms(lambda: hamming_rows(a, c), reps),
+                "plain_ms": median_ms(lambda: hamming_rows_ref(a, c), reps),
                 "bound_ms": b_ms, "bound_by": b_by}
         del a, c, got, ref
     search_t, merge_t = ham_times[(2048, 48, 12)], ham_times[(MERGE_CHUNK, 96, 12)]
@@ -294,8 +288,8 @@ def phase_kernel_parity(torch, reps: int):
     q, win, cent, err = keep
     qn, c, d = 2048, 1920, 384
     w = -(-d // 8)
-    ms = median_ms(torch, lambda: qdist_windows(q, win, cent), reps)
-    plain_ms = median_ms(torch, lambda: qdist_windows_ref(q, win, cent), max(5, reps // 4))
+    ms = median_ms(lambda: qdist_windows(q, win, cent), reps)
+    plain_ms = median_ms(lambda: qdist_windows_ref(q, win, cent), max(5, reps // 4))
     b_ms, b_by = bound((qn * d + qn * c * w + d * 16 + qn * c) * 4, 3 * qn * c * d)
     rows.append({
         "name": "qdist_windows", "route": "cuda",
@@ -328,8 +322,8 @@ def phase_kernel_parity(torch, reps: int):
             w = -(-k // 32)
             b_ms, b_by = bound(n * k + n * w * 4, n * k)
             pack_times[(n, k)] = {
-                "ms": median_ms(torch, lambda: pack_bits(bits), reps),
-                "plain_ms": median_ms(torch, lambda: pack_bits_ref(bits),
+                "ms": median_ms(lambda: pack_bits(bits), reps),
+                "plain_ms": median_ms(lambda: pack_bits_ref(bits),
                                       max(5, reps // 4)),
                 "bound_ms": b_ms, "bound_by": b_by}
         del bits, got, ref
@@ -351,7 +345,74 @@ def phase_kernel_parity(torch, reps: int):
           "shapes": [[3_000_000, 384], [262_144, 448], [LSM_BUFFER, 448],
                      [LSM_BUFFER, 384], [37, 61]],
           "times": {str(list(s)): t for s, t in pack_times.items()}})
-    return rows
+
+    # --- hamming_matrix: exact; qdist, qdist_from_packed: rtol 1e-5, atol 1e-6
+    # At the kernel bench's shapes and one ragged shape each; their times
+    # are phase kernel_bench's.
+    for qn, c, w in (kernel_bench.HAMMING_SHAPE, (37, 333, 14)):
+        a, b = words(qn, w), words(c, w)
+        got, ref = hamming_matrix(a, b), hamming_matrix_ref(a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"hamming_matrix != plain version at {(qn, c, w)}")
+        del a, b, got, ref
+    emit({"phase": "kernel_parity", "kernel": "hamming_matrix", "exact": True,
+          "shapes": [list(kernel_bench.HAMMING_SHAPE), [37, 333, 14]]})
+    dense_errs = {"hamming_matrix": 0.0, "qdist": {}, "qdist_from_packed": {}}
+    for qn, c, d in (kernel_bench.QDIST_SHAPE, (37, 333, 61)):
+        q = torch.randn(qn, d, generator=g, device=dev)
+        codes = torch.randint(0, 16, (c, d), generator=g, device=dev, dtype=torch.uint8)
+        cent = torch.sort(torch.randn(d, 16, generator=g, device=dev), dim=1).values
+        for name, fn, ref_fn, arg in (
+                ("qdist", qdist, qdist_u8_ref, codes),
+                ("qdist_from_packed", qdist_from_packed, qdist_packed_ref,
+                 pack_codes(codes))):
+            got, ref = fn(q, arg, cent), ref_fn(q, arg, cent)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, rtol=DIST_RTOL, atol=DIST_ATOL)
+            dense_errs[name][str([qn, c, d])] = float((got - ref).abs().max())
+            del got, ref
+    for name in ("qdist", "qdist_from_packed"):
+        emit({"phase": "kernel_parity", "kernel": name, "rtol": DIST_RTOL,
+              "atol": DIST_ATOL, "max_abs_err": dense_errs[name]})
+        dense_errs[name] = max(dense_errs[name].values())
+    torch.cuda.empty_cache()
+    return rows, dense_errs
+
+
+# Kernels 4-6: where each lives and which TPU kernel it replaces; their
+# times are phase kernel_bench's rows, in this order.
+DENSE_KERNELS = (
+    ("hamming_matrix", "src/repro_torch/csrc/hamming_matrix.cu",
+     "src/repro/kernels/hamming/kernel.py:47"),
+    ("qdist", "src/repro_torch/csrc/qdist_dense.cu",
+     "src/repro/kernels/qdist/kernel.py:120"),
+    ("qdist_from_packed", "src/repro_torch/csrc/qdist_dense.cu",
+     "src/repro/kernels/qdist/kernel.py:149"),
+)
+
+
+def phase_kernel_bench(torch, dense_errs):
+    """``repro_torch.benchmarks.kernel_bench`` on the card, the path of
+    kernels 4-6; returns its launches and the kernels' table rows."""
+    from repro_torch.benchmarks import kernel_bench
+
+    reset_launches()
+    t0 = time.perf_counter()
+    bench = kernel_bench.main("cuda")
+    launches = read_launches(torch)
+    emit({"phase": "kernel_bench", "rows": bench, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    require_launched("kernel_bench", launches,
+                     ["hamming_matrix", "qdist", "qdist_from_packed"])
+    rows = []
+    for (name, source, replaces), b in zip(DENSE_KERNELS, bench):
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "max_abs_err": dense_errs[name],
+                     "ms": b["device_ms"], "plain_ms": b["plain_ms"],
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                     "library_ms": b["library_ms"], "shape": b["name"]})
+    return {"kernel_bench": launches}, rows
 
 
 def lsm_state(mut) -> dict:
@@ -646,7 +707,55 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
           "load_s": load_s})
     if not same:
         raise AssertionError("search after save -> load differs")
-    return {"build": build_launches, "search": launches}
+    return {"build": build_launches, "search": launches}, truth
+
+
+def phase_table1(torch, points, queries, truth):
+    """The paper's Table 1 (``repro_torch.benchmarks.task1_table1``): its 16
+    rows on the corpus, the first TABLE1_QUERIES queries and their exact
+    neighbours from phase ``recall``; returns the launches of its builds
+    and searches."""
+    from repro_torch.benchmarks import task1_table1
+
+    nq = min(TABLE1_QUERIES, queries.shape[0])
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = task1_table1.main(points=points, queries=queries[:nq], truth=truth[:nq])
+    launches = read_launches(torch)
+    builds = {r["n_trees"]: r["build_s"] for r in rows}
+    emit({"phase": "table1", "n": points.shape[0], "queries": nq, "rows": rows,
+          "build_s": builds, "best_recall_at_30": max(r["recall_at_30"] for r in rows),
+          "floor": task1_table1.RECALL_FLOOR, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    require_launched("table1", launches, ["hamming_rows", "qdist_windows", "pack_bits"])
+    return {"table1": launches}
+
+
+def phase_engine_memory(torch, run_engine):
+    """Run the engine phase; device memory allocated once it has returned
+    may be at most ENGINE_RETAINED_GIB above what it was before.  No
+    collection runs in between: what only the cyclic collector would free
+    counts as kept."""
+    from repro_torch.index import HilbertIndex, MutableHilbertIndex
+    from repro_torch.obs import RecallProbe
+
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    launches = run_engine()
+    after = torch.cuda.memory_allocated()
+    kinds = (RecallProbe, HilbertIndex, MutableHilbertIndex)
+    alive = [o for o in gc.get_objects() if type(o) in kinds]
+    report = {"phase": "engine_memory", "allocated_before_gib": before / 2**30,
+              "allocated_after_gib": after / 2**30,
+              "retained_gib": (after - before) / 2**30,
+              "limit_gib": ENGINE_RETAINED_GIB,
+              "alive": sorted(type(o).__name__ for o in alive)}
+    del alive
+    emit(report)
+    if after - before > ENGINE_RETAINED_GIB * 2**30:
+        raise AssertionError(f"the engine phase left {report['retained_gib']} GiB "
+                             f"allocated after its cleanup (alive: {report['alive']})")
+    return launches
 
 
 def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: float):
@@ -986,7 +1095,6 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
     the comparison in ``chip_engine_ab.py``.
     """
     import contextlib
-    import gc
     import threading
     import urllib.request
     from collections import deque
@@ -1323,21 +1431,24 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
             raise AssertionError(f"scrape: missing series {missing} or spans "
                                  f"{span_names}")
     finally:
-        # The registry keeps the probe, and through its `offer` these
-        # snapshots and their segments: let them go even when a check failed.
+        # The kept snapshots share the served segments: let them go even
+        # when a check failed.
         kept.clear()
         w_stop.set()
         m_stop.set()
         obs.disable()
         eng.stop(drain=False)
+        # The timing wrapper closes a cycle through the engine (and so its
+        # index), which only the cyclic collector would free, and then
+        # perhaps only after the next phase has started.
+        del eng._compact_shadow
         server.close()
     emit({"phase": "engine", "seconds": time.perf_counter() - t_phase,
           "launch_lock": launch_lock,
           "windows": {k: {x: v[x] for x in ("request_ms", "search_ms", "qps", "swaps")}
                       for k, v in results.items()},
           "launches": launches})
-    del eng, index, final
-    gc.collect()
+    del eng, index, final, inner_compact
     torch.cuda.empty_cache()
     return {"engine": launches}
 
@@ -1504,16 +1615,24 @@ def main(argv=None) -> int:
 
     phase_device()
     phase_build(_build)
-    kernels = phase_kernel_parity(torch, KERNEL_REPS)
+    kernels, dense_errs = phase_kernel_parity(torch, KERNEL_REPS)
+    launches, dense_rows = phase_kernel_bench(torch, dense_errs)
+    kernels += dense_rows
+    torch.cuda.empty_cache()
     phase_device_parity(torch, cfg, lsm_cfg, PARITY_ROWS, args.seed)
     points, queries = phase_data(torch, args.n, args.queries, args.seed)
-    launches = phase_main_path(torch, cfg, params, points, queries,
-                               args.recall_floor)
+    main_launches, truth = phase_main_path(torch, cfg, params, points, queries,
+                                           args.recall_floor)
+    launches.update(main_launches)
+    torch.cuda.empty_cache()
+    launches.update(phase_table1(torch, points, queries, truth))
+    del truth
     torch.cuda.empty_cache()
     launches.update(phase_lsm(torch, lsm_cfg, params, points, queries, args.seed,
                               args.recall_floor))
     torch.cuda.empty_cache()
-    launches.update(phase_engine(torch, lsm_cfg, params, points, queries, args.seed))
+    launches.update(phase_engine_memory(torch, lambda: phase_engine(
+        torch, lsm_cfg, params, points, queries, args.seed)))
     del queries
     torch.cuda.empty_cache()
     launches.update(phase_task2(torch, points, graph_params, args.seed,

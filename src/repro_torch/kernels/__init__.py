@@ -3,4 +3,11 @@
 A wrapper takes the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel (built from ``repro_torch/csrc`` by :mod:`._build`) or
 raises.
+
+* :mod:`.hamming`: ``hamming_rows`` (stage-1 filter, per-query candidates)
+  and ``hamming_matrix`` (dense);
+* :mod:`.qdist`: ``qdist_windows`` (stage-2 ADC, per-query windows),
+  ``qdist`` (dense, uint8 codes) and ``qdist_from_packed`` (dense,
+  nibble-packed codes);
+* :mod:`.bitpack`: ``pack_bits`` (sketches and Hilbert keys).
 """

@@ -28,7 +28,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "build_log", "library", "nvcc_path"
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("hamming_rows", "qdist_windows", "pack_bits")
+SOURCES = ("hamming_rows", "qdist_windows", "pack_bits", "hamming_matrix",
+           "qdist_dense")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -1,1 +1,6 @@
-from repro_torch.kernels.hamming.ops import hamming_rows, hamming_rows_ref  # noqa: F401
+from repro_torch.kernels.hamming.ops import (  # noqa: F401
+    hamming_matrix,
+    hamming_matrix_ref,
+    hamming_rows,
+    hamming_rows_ref,
+)

@@ -1,10 +1,15 @@
-"""Stage-1 Hamming filter: the CUDA kernel's wrapper beside its plain version.
+"""Sketch Hamming distances: the CUDA kernels' wrappers beside their plain versions.
 
 ``hamming_rows`` is the counterpart of ``repro.kernels.hamming.hamming_rows``
-(Pallas ``hamming_rows_kernel``): (Q, W) query sketches against each
-query's own (Q, K, W) candidate sketches, 32-bit words held in int32,
-giving (Q, K) int32 distances.  The kernel lives in
+(Pallas ``hamming_rows_kernel``), the stage-1 filter: (Q, W) query
+sketches against each query's own (Q, K, W) candidate sketches, 32-bit
+words held in int32, giving (Q, K) int32 distances.  The kernel lives in
 ``repro_torch/csrc/hamming_rows.cu``.
+
+``hamming_matrix`` is the counterpart of
+``repro.kernels.hamming.hamming_matrix`` (Pallas ``hamming_matrix_kernel``):
+(Q, W) against (C, W) shared candidates, giving the dense (Q, C) int32
+matrix.  The kernel lives in ``repro_torch/csrc/hamming_matrix.cu``.
 """
 
 from __future__ import annotations
@@ -18,7 +23,11 @@ from repro_torch.core import sketch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import check, count_launch, raise_on_error, same
 
-__all__ = ["hamming_rows", "hamming_rows_ref"]
+__all__ = ["hamming_rows", "hamming_rows_ref", "hamming_matrix", "hamming_matrix_ref"]
+
+# Elements of the (rows, C, W) XOR block one step of hamming_matrix_ref
+# builds: the bench shape (512 x 65536 x 12) would need 1.6 GB at once.
+_REF_ELEMS = 1 << 25
 
 
 def hamming_rows_ref(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
@@ -63,3 +72,53 @@ def hamming_rows(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tenso
 
 
 hamming_rows.launches = 0
+
+
+def hamming_matrix_ref(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: popcount(q ^ c) summed over words -> (Q, C)
+    int32, a block of query rows at a time."""
+    qn, c = queries.shape[0], candidates.shape[0]
+    step = max(1, _REF_ELEMS // max(1, c * candidates.shape[1]))
+    out = torch.empty((qn, c), dtype=torch.int32, device=queries.device)
+    for s in range(0, qn, step):
+        out[s : s + step] = sketch.hamming_distance(
+            queries[s : s + step, None, :], candidates[None, :, :])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix_launcher():
+    fn = _build.library("hamming_matrix").hamming_matrix_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def hamming_matrix(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
+    """(Q, W) vs shared (C, W) int32 words -> (Q, C) int32 Hamming.
+
+    CPU tensors take :func:`hamming_matrix_ref`; CUDA tensors launch the
+    kernel on the current stream (and count it in
+    ``hamming_matrix.launches``) or raise.
+    """
+    check("queries", queries, torch.int32, 2)
+    check("candidates", candidates, torch.int32, 2, queries.device)
+    same("candidates W", candidates.shape[1:], queries.shape[1:])
+    if queries.device.type == "cpu":
+        return hamming_matrix_ref(queries, candidates)
+    if queries.device.type != "cuda":
+        raise ValueError(f"hamming_matrix: no kernel for device {queries.device}")
+    (qn, w), c = queries.shape, candidates.shape[0]
+    out = torch.empty((qn, c), dtype=torch.int32, device=queries.device)
+    if out.numel() == 0:
+        return out
+    err = _matrix_launcher()(
+        queries.data_ptr(), candidates.data_ptr(), out.data_ptr(), qn, c, w,
+        torch.cuda.current_stream(queries.device).cuda_stream,
+    )
+    raise_on_error("hamming_matrix", err)
+    count_launch(hamming_matrix)
+    return out
+
+
+hamming_matrix.launches = 0

@@ -1,4 +1,4 @@
-"""Stage-2 packed ADC distance: the CUDA kernel's wrapper beside its plain version.
+"""Asymmetric 4-bit distances: the CUDA kernels' wrappers beside their plain versions.
 
 ``qdist_windows`` is the counterpart of
 ``repro.kernels.qdist.qdist_windows_from_packed`` (Pallas
@@ -9,6 +9,14 @@ giving (Q, C) fp32 squared L2.  The kernel lives in
 word ``w`` as :func:`repro_torch.core.quantize.pack_codes` writes it; the
 TPU kernel's ``packed_dim_order`` permutation fed its matrix unit and has
 no counterpart here.
+
+``qdist`` and ``qdist_from_packed`` are the counterparts of
+``repro.kernels.qdist.qdist`` and ``qdist_from_packed`` (Pallas
+``qdist_u8_kernel`` and ``qdist_packed_kernel``): fp32 queries (Q, D)
+against codes shared by every query, (C, D) uint8 or nibble-packed
+(C, ceil(D/8)), and (D, L) centroids, giving the dense (Q, C) fp32
+matrix.  Both kernels live in ``repro_torch/csrc/qdist_dense.cu``, one
+launcher each.
 """
 
 from __future__ import annotations
@@ -21,9 +29,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import check, count_launch, raise_on_error, same
 
-__all__ = ["qdist_windows", "qdist_windows_ref"]
+__all__ = ["qdist_windows", "qdist_windows_ref", "qdist", "qdist_u8_ref",
+           "qdist_from_packed", "qdist_packed_ref"]
 
 LEVELS = 16  # nibble codes
+
+# Elements of the (rows, C, D) difference block one step of the dense
+# plain versions builds: the bench shape (512 x 16384 x 384) would need
+# 12.9 GB at once.
+_REF_ELEMS = 1 << 25
 
 
 def qdist_windows_ref(queries: torch.Tensor, packed_windows: torch.Tensor,
@@ -78,3 +92,103 @@ def qdist_windows(queries: torch.Tensor, packed_windows: torch.Tensor,
 
 
 qdist_windows.launches = 0
+
+
+def _dense_ref(queries: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
+    """``((q - r)**2).sum(-1)`` of every query against every (C, D) row of
+    ``recon``, a block of query rows at a time."""
+    qn, c = queries.shape[0], recon.shape[0]
+    step = max(1, _REF_ELEMS // max(1, c * recon.shape[1]))
+    out = torch.empty((qn, c), dtype=torch.float32, device=queries.device)
+    for s in range(0, qn, step):
+        out[s : s + step] = ((queries[s : s + step, None, :] - recon[None]) ** 2).sum(-1)
+    return out
+
+
+def qdist_u8_ref(queries: torch.Tensor, codes: torch.Tensor,
+                 centroids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: gather centroids, ``((q - r)**2).sum(-1)``."""
+    dims = torch.arange(codes.shape[1], device=codes.device)
+    return _dense_ref(queries, centroids[dims, codes.long()])
+
+
+def qdist_packed_ref(queries: torch.Tensor, packed: torch.Tensor,
+                     centroids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: unpack the nibbles, then :func:`qdist_u8_ref`."""
+    d = queries.shape[1]
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=packed.device)
+    codes = ((packed[..., None] >> shifts) & 0xF).reshape(packed.shape[0], -1)[:, :d]
+    return qdist_u8_ref(queries, codes, centroids)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_launcher(name: str):
+    fn = getattr(_build.library("qdist_dense"), name)
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_dense(wrapper, launcher: str, queries, codes, centroids):
+    """Allocate (Q, C), launch ``launcher`` on the current stream, count it."""
+    (qn, d), c = queries.shape, codes.shape[0]
+    out = torch.empty((qn, c), dtype=torch.float32, device=queries.device)
+    if out.numel() == 0:
+        return out
+    err = _dense_launcher(launcher)(
+        queries.data_ptr(), codes.data_ptr(), centroids.data_ptr(), out.data_ptr(),
+        qn, c, d, centroids.shape[1],
+        torch.cuda.current_stream(queries.device).cuda_stream,
+    )
+    raise_on_error(wrapper.__name__, err)
+    count_launch(wrapper)
+    return out
+
+
+def qdist(queries: torch.Tensor, codes: torch.Tensor,
+          centroids: torch.Tensor) -> torch.Tensor:
+    """(Q, D) f32 x (C, D) uint8 codes x (D, L) f32 -> (Q, C) f32 squared L2.
+
+    L is ``centroids.shape[1]``.  CPU tensors take :func:`qdist_u8_ref`;
+    CUDA tensors launch the kernel on the current stream (and count it in
+    ``qdist.launches``) or raise.
+    """
+    check("queries", queries, torch.float32, 2)
+    check("codes", codes, torch.uint8, 2, queries.device)
+    check("centroids", centroids, torch.float32, 2, queries.device)
+    d = queries.shape[1]
+    same("codes D", codes.shape[1:], (d,))
+    same("centroids D", centroids.shape[:1], (d,))
+    if centroids.shape[1] < 1:
+        raise ValueError("centroids: at least one level")
+    if queries.device.type == "cpu":
+        return qdist_u8_ref(queries, codes, centroids)
+    if queries.device.type != "cuda":
+        raise ValueError(f"qdist: no kernel for device {queries.device}")
+    return _launch_dense(qdist, "qdist_u8_launch", queries, codes, centroids)
+
+
+def qdist_from_packed(queries: torch.Tensor, packed: torch.Tensor,
+                      centroids: torch.Tensor) -> torch.Tensor:
+    """(Q, D) f32 x (C, ceil(D/8)) int32 words x (D, 16) f32 -> (Q, C) f32.
+
+    CPU tensors take :func:`qdist_packed_ref`; CUDA tensors launch the
+    kernel on the current stream (and count it in
+    ``qdist_from_packed.launches``) or raise.
+    """
+    check("queries", queries, torch.float32, 2)
+    check("packed", packed, torch.int32, 2, queries.device)
+    check("centroids", centroids, torch.float32, 2, queries.device)
+    d = queries.shape[1]
+    same("packed W", packed.shape[1:], (-(-d // 8),))
+    same("centroids", centroids.shape, (d, LEVELS))
+    if queries.device.type == "cpu":
+        return qdist_packed_ref(queries, packed, centroids)
+    if queries.device.type != "cuda":
+        raise ValueError(f"qdist_from_packed: no kernel for device {queries.device}")
+    return _launch_dense(qdist_from_packed, "qdist_packed_launch", queries, packed,
+                         centroids)
+
+
+qdist.launches = 0
+qdist_from_packed.launches = 0

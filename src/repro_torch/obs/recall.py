@@ -26,6 +26,7 @@ The sharded layouts wait for the port of the sharded indexes.
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
@@ -222,10 +223,23 @@ class RecallProbe:
         self._dropped = reg.counter("engine_recall_batches_dropped_total")
         self._unscorable = reg.counter("engine_recall_unscorable_total")
         self._samples = reg.counter("engine_recall_samples_total")
-        self._gauge = reg.gauge("engine_recall_at_k", fn=self.recall)
+        # Bound through a weakref: the process-global registry must not
+        # keep a dropped probe alive, and with it every snapshot still in
+        # ``_pending`` (each shares the served segments' tensors).  A dead
+        # probe's gauges read nan until the next probe re-binds them.
+        wr = weakref.ref(self)
+
+        def read(fn):
+            def value() -> float:
+                probe = wr()
+                return float("nan") if probe is None else fn(probe)
+            return value
+
+        self._gauge = reg.gauge("engine_recall_at_k",
+                                fn=read(RecallProbe.recall))
         self._pending_gauge = reg.gauge(
-            "engine_recall_pending_batches", fn=lambda: len(self._pending)
-        )
+            "engine_recall_pending_batches",
+            fn=read(lambda probe: len(probe._pending)))
 
     def offer(self, queries: np.ndarray, ids: np.ndarray, k: int,
               index: Any) -> bool:

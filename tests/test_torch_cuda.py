@@ -9,8 +9,10 @@ import pytest
 import torch
 
 from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
-from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
-from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
+from repro_torch.kernels.hamming import (hamming_matrix, hamming_matrix_ref,
+                                         hamming_rows, hamming_rows_ref)
+from repro_torch.kernels.qdist import (qdist, qdist_from_packed, qdist_packed_ref,
+                                       qdist_u8_ref, qdist_windows, qdist_windows_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +65,36 @@ def test_pack_bits_kernel_exact(gen, n, k):
     assert pack_bits.launches == before + 1
     assert torch.equal(got, pack_bits_ref(bits))
     assert torch.equal(pack_bits(bits.bool()), got)
+
+
+@pytest.mark.parametrize("q,c,w", [(37, 333, 14), (64, 256, 12), (1, 1, 1), (5, 3, 20)])
+def test_hamming_matrix_kernel_exact(gen, q, c, w):
+    a, b = _words(gen, q, w), _words(gen, c, w)
+    before = hamming_matrix.launches
+    got = hamming_matrix(a, b)
+    torch.cuda.synchronize()
+    assert hamming_matrix.launches == before + 1
+    assert torch.equal(got, hamming_matrix_ref(a, b))
+
+
+@pytest.mark.parametrize("q,c,d", [(37, 333, 61), (64, 256, 384), (1, 1, 1), (5, 3, 100)])
+def test_dense_qdist_kernels_within_contract(gen, q, c, d):
+    """Kernels 5-6 (uint8 and nibble-packed codes) against their plain
+    versions; a ragged last word must add nothing."""
+    from repro_torch.core.quantize import pack_codes
+
+    queries = torch.randn(q, d, generator=gen, device="cuda")
+    codes = torch.randint(0, 16, (c, d), generator=gen, device="cuda", dtype=torch.uint8)
+    cent = torch.sort(torch.randn(d, 16, generator=gen, device="cuda"), dim=1).values
+    packed = pack_codes(codes)
+    for fn, ref, arg in ((qdist, qdist_u8_ref, codes),
+                         (qdist_from_packed, qdist_packed_ref, packed)):
+        before = fn.launches
+        got = fn(queries, arg, cent)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        torch.testing.assert_close(got, ref(queries, arg, cent),
+                                   rtol=DIST_RTOL, atol=DIST_ATOL)
 
 
 def test_wrappers_reject_mixed_devices(gen):

@@ -255,8 +255,15 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "from repro_torch.serve import RetrievalEngine\n"
         "eng = RetrievalEngine(m, SearchParams(k1=8, k2=16, h=1, k=3))\n"
         "assert eng.search(x[:5])[0].shape == (5, 3)\n"
+        "from repro_torch.configs import pubmed23\n"
+        "from repro_torch.benchmarks import kernel_bench, task1_table1\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    rows = kernel_bench.main('cpu', hamming_shape=(3, 9, 2), qdist_shape=(2, 5, 16))\n"
+        "assert len(rows) == 3 and pubmed23.TABLE1_TREES[0] == 160\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "       or m == 'repro' or m.startswith('repro.')\n"
+        "       or m == 'benchmarks' or m.startswith('benchmarks.')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

@@ -1,10 +1,15 @@
 """Port parity: the plain versions of the Hopper kernels against repro.
 
-``hamming_rows_ref`` must equal the JAX ``hamming_rows`` exactly, in both
-its interpret-mode Pallas kernel and its oracle, and so must
+``hamming_rows_ref`` and ``hamming_matrix_ref`` must equal the JAX
+``hamming_rows`` and ``hamming_matrix`` exactly, in both their
+interpret-mode Pallas kernels and their oracles, and so must
 ``pack_bits_ref`` the JAX ``pack_bits``; ``qdist_windows_ref`` must agree
 with ``qdist_windows_from_packed`` (interpret-mode kernel and oracle)
-within the repo's distance contract.  On CPU tensors the wrappers
+within the repo's distance contract, and ``qdist_u8_ref`` and
+``qdist_packed_ref`` with ``qdist`` and ``qdist_from_packed`` (the
+oracles within that contract, the interpret-mode kernels within
+``tests/test_kernels.py``'s rtol 1e-5 / atol 1e-5: their expanded
+``|q|^2 - 2 q.r + |r|^2`` form cancels digits).  On CPU tensors the wrappers
 take the plain versions and launch nothing; the kernels themselves run in
 ``tests/test_torch_cuda.py`` on a GPU.
 """
@@ -15,12 +20,18 @@ import pytest
 import torch
 
 from repro.kernels.bitpack import pack_bits as j_pack_bits
+from repro.kernels.hamming import hamming_matrix as j_hamming_matrix
+from repro.kernels.hamming import hamming_matrix_ref as j_hamming_matrix_ref
 from repro.kernels.hamming import hamming_rows as j_hamming_rows
+from repro.kernels.qdist import qdist as j_qdist
+from repro.kernels.qdist import qdist_from_packed as j_qdist_from_packed
 from repro.kernels.qdist import qdist_windows_from_packed
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
-from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
-from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
+from repro_torch.kernels.hamming import (hamming_matrix, hamming_matrix_ref,
+                                         hamming_rows, hamming_rows_ref)
+from repro_torch.kernels.qdist import (qdist, qdist_from_packed, qdist_packed_ref,
+                                       qdist_u8_ref, qdist_windows, qdist_windows_ref)
 from test_kernels_integration import DIST_ATOL, DIST_RTOL
 
 
@@ -67,6 +78,82 @@ def test_qdist_windows_ref_matches_jax_kernel_and_oracle(q, c, d):
     before = qdist_windows.launches
     np.testing.assert_array_equal(qdist_windows(tq, tp, tc).numpy(), ref.numpy())
     assert qdist_windows.launches == before
+
+
+@pytest.mark.parametrize("q,c,w", [(1, 1, 1), (7, 129, 12), (130, 257, 16)])
+def test_hamming_matrix_ref_matches_jax_kernel_and_oracle(q, c, w):
+    rng = np.random.default_rng(q * 1000 + c)
+    a, b = _words(rng, q, w), _words(rng, c, w)
+    ta, tb = torch.from_numpy(a.view(np.int32)), torch.from_numpy(b.view(np.int32))
+    ref = hamming_matrix_ref(ta, tb)
+    assert ref.dtype == torch.int32 and ref.shape == (q, c)
+    for want in (j_hamming_matrix(jnp.asarray(a), jnp.asarray(b), use_kernel=True,
+                                  interpret=True),
+                 j_hamming_matrix_ref(jnp.asarray(a), jnp.asarray(b))):
+        np.testing.assert_array_equal(np.asarray(want), ref.numpy())
+    before = hamming_matrix.launches
+    np.testing.assert_array_equal(hamming_matrix(ta, tb).numpy(), ref.numpy())
+    assert hamming_matrix.launches == before  # CPU tensors launch nothing
+
+
+def _dense_codes(q, c, d):
+    """Queries, 4-bit codes (uint8 and nibble-packed) and sorted centroids."""
+    rng = np.random.default_rng(q * 100 + d)
+    w = -(-d // 8)
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    codes = rng.integers(0, 16, size=(c, d), dtype=np.uint8)
+    wide = np.zeros((c, w * 8), np.uint32)
+    wide[:, :d] = codes  # pack_codes leaves the padding nibbles zero
+    shifts = np.arange(8, dtype=np.uint32) * 4
+    packed = (wide.reshape(c, w, 8) << shifts).sum(-1, dtype=np.uint32)
+    cent = np.sort(rng.normal(size=(d, 16)).astype(np.float32), axis=1)
+    return queries, codes, packed, cent
+
+
+@pytest.mark.parametrize("layout", ["u8", "packed"])
+@pytest.mark.parametrize("q,c,d", [(5, 200, 48), (16, 64, 100), (9, 130, 384)])
+def test_dense_qdist_refs_match_jax_kernel_and_oracle(q, c, d, layout):
+    queries, codes, packed, cent = _dense_codes(q, c, d)
+    tq, tc = torch.from_numpy(queries), torch.from_numpy(cent)
+    if layout == "u8":
+        arg, wrapper, ref_fn = torch.from_numpy(codes), qdist, qdist_u8_ref
+        jq, jcodes, jcent = jnp.asarray(queries), jnp.asarray(codes), jnp.asarray(cent)
+        oracle = j_qdist(jq, jcodes, jcent)
+        kernel = j_qdist(jq, jcodes, jcent, use_kernel=True, interpret=True)
+    else:
+        arg = torch.from_numpy(packed.view(np.int32))
+        wrapper, ref_fn = qdist_from_packed, qdist_packed_ref
+        jq, jp, jcent = jnp.asarray(queries), jnp.asarray(packed), jnp.asarray(cent)
+        oracle = j_qdist_from_packed(jq, jp, jcent, d=d)
+        kernel = j_qdist_from_packed(jq, jp, jcent, d=d, use_kernel=True, interpret=True)
+    ref = ref_fn(tq, arg, tc)
+    assert ref.dtype == torch.float32 and ref.shape == (q, c)
+    np.testing.assert_allclose(ref.numpy(), np.asarray(oracle), rtol=DIST_RTOL,
+                               atol=DIST_ATOL)
+    np.testing.assert_allclose(ref.numpy(), np.asarray(kernel), rtol=1e-5, atol=1e-5)
+    before = wrapper.launches
+    np.testing.assert_array_equal(wrapper(tq, arg, tc).numpy(), ref.numpy())
+    assert wrapper.launches == before  # CPU tensors launch nothing
+
+
+def test_dense_qdist_refs_chunk_without_changing_a_bit(monkeypatch):
+    """The plain versions walk the queries in blocks (the bench shape would
+    need 12.9 GB at once); block boundaries move no bit."""
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.qdist import ops as qops
+
+    queries, codes, packed, cent = _dense_codes(9, 130, 61)
+    tq, tc = torch.from_numpy(queries), torch.from_numpy(cent)
+    tp = torch.from_numpy(packed.view(np.int32))
+    words = torch.from_numpy(_words(np.random.default_rng(0), 9, 3).view(np.int32))
+    whole = (qdist_u8_ref(tq, torch.from_numpy(codes), tc), qdist_packed_ref(tq, tp, tc),
+             hamming_matrix_ref(words, tp[:, :3].contiguous()))
+    monkeypatch.setattr(qops, "_REF_ELEMS", 2 * 130 * 61)  # 2 queries a block
+    monkeypatch.setattr(hops, "_REF_ELEMS", 2 * 130 * 3)
+    blocks = (qdist_u8_ref(tq, torch.from_numpy(codes), tc), qdist_packed_ref(tq, tp, tc),
+              hamming_matrix_ref(words, tp[:, :3].contiguous()))
+    for a, b in zip(whole, blocks):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n,k", [(1, 1), (37, 61), (300, 384), (257, 448)])
@@ -142,6 +229,61 @@ def test_qdist_windows_rejects_bad_arguments(case):
     q, p, cent, err = _bad_qdist_args()[case]
     with pytest.raises(err):
         qdist_windows(q, p, cent)
+
+
+def _bad_hamming_matrix_args():
+    a = torch.zeros((4, 3), dtype=torch.int32)
+    c = torch.zeros((5, 3), dtype=torch.int32)
+    return [
+        (a.to(torch.int64), c, TypeError),
+        (a, c.to(torch.uint8), TypeError),
+        (a, c[:, :2].contiguous(), ValueError),  # W mismatch
+        (a, c[:, None, :], ValueError),  # rank
+        (a, c.t().contiguous().t(), ValueError),  # strided
+        (a.numpy(), c, TypeError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_hamming_matrix_rejects_bad_arguments(case):
+    a, c, err = _bad_hamming_matrix_args()[case]
+    with pytest.raises(err):
+        hamming_matrix(a, c)
+
+
+def _bad_dense_qdist_args(packed):
+    q = torch.zeros((2, 61), dtype=torch.float32)
+    codes = (torch.zeros((9, 8), dtype=torch.int32) if packed
+             else torch.zeros((9, 61), dtype=torch.uint8))
+    cent = torch.zeros((61, 16), dtype=torch.float32)
+    wrong_type = torch.int64 if packed else torch.int32
+    return [
+        (q.double(), codes, cent, TypeError),
+        (q, codes.to(wrong_type), cent, TypeError),
+        (q, codes[:, :7].contiguous(), cent, ValueError),  # width != D (u8), ceil(D/8)
+        (q, codes, cent[:60], ValueError),  # centroids D
+        (q, codes, cent.double(), TypeError),
+        (q.t().contiguous().t(), codes, cent, ValueError),  # strided queries
+        (q, codes[:, None, :], cent, ValueError),  # rank
+    ]
+
+
+@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("layout", ["u8", "packed"])
+def test_dense_qdist_rejects_bad_arguments(layout, case):
+    q, codes, cent, err = _bad_dense_qdist_args(layout == "packed")[case]
+    with pytest.raises(err):
+        (qdist_from_packed if layout == "packed" else qdist)(q, codes, cent)
+
+
+def test_qdist_from_packed_needs_16_levels():
+    q = torch.zeros((2, 61), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        qdist_from_packed(q, torch.zeros((9, 8), dtype=torch.int32),
+                          torch.zeros((61, 8), dtype=torch.float32))
+    # the uint8 layout takes any number of levels, as the JAX wrapper does
+    assert qdist(q, torch.zeros((9, 61), dtype=torch.uint8),
+                 torch.zeros((61, 8), dtype=torch.float32)).shape == (2, 9)
 
 
 def test_build_raises_without_nvcc(monkeypatch):

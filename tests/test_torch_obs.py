@@ -398,6 +398,36 @@ def test_online_recall_matches_offline(data, tmp_path):
     assert 0.0 < offline <= 1.0
 
 
+@pytest.mark.parametrize("drain", [True, False])
+def test_stopped_engine_releases_its_probe_and_snapshots(data, tmp_path, drain):
+    """The process-global registry binds the probe's gauges through a
+    weakref: once a stopped engine is dropped, its probe and every snapshot
+    the probe kept are collectable, and the probe's gauges read nan."""
+    import gc
+    import weakref
+
+    d, queries = data
+    _, tm = mutable_pair(str(tmp_path / "m"), d)
+    eng = TEngine(tm, TSP, max_batch=16,
+                  recall=tobs.RecallProbeConfig(fraction=1.0, max_pending=16, seed=0))
+    eng.submit(queries[:16])
+    while eng.step():
+        pass
+    probe = eng.recall_probe
+    assert len(probe._pending) == 1
+    snap = probe._pending[0][3]
+    assert snap is not tm and snap.segments[0].index is tm.segments[0].index
+    refs = [weakref.ref(probe), weakref.ref(snap)]
+    del probe, snap
+    eng.stop(drain=drain)
+    del eng
+    gc.collect()
+    assert [r() for r in refs] == [None, None]
+    snap = tobs.default_registry().snapshot()
+    assert np.isnan(snap["engine_recall_at_k"])
+    assert np.isnan(snap["engine_recall_pending_batches"])
+
+
 def test_step_mode_bit_identical_with_observability_enabled(statics, data):
     _, tidx = statics
     _, queries = data
