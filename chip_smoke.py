@@ -147,6 +147,12 @@ KERNEL_REPS = 20  # timed runs per kernel (after warm-up)
 PARITY_ROWS = 20_000  # rows of the cuda-vs-cpu build and graph checks
 MERGE_CHUNK = 1 << 16  # rows of one Task-2 merge pass (knn_graph's default)
 
+# Table 1's kernel shapes (pubmed23.TABLE1, 2048 queries a search): stage 1
+# at the mean k1 of the 160-tree rows (1255) and of the 120-tree rows
+# (2425); stage 2 at the mean pool (2h + 1) k2 (5 x 335 and 5 x 975).
+TABLE1_HAMMING_SHAPES = ((2048, 1255, 12), (2048, 2425, 12))
+TABLE1_QDIST_SHAPES = ((2048, 1675, 384), (2048, 4875, 384))
+
 
 def kernel_fns():
     """The kernel wrappers of the port, by name (each counts its launches)."""
@@ -256,6 +262,16 @@ def phase_kernel_parity(torch, reps: int):
                 "plain_ms": median_ms(lambda: hamming_rows_ref(a, c), reps),
                 "bound_ms": b_ms, "bound_by": b_by}
         del a, c, got, ref
+    # Table 1's stage 1 at the mean k1 of its 160- and 120-tree rows
+    # (pubmed23.TABLE1): exact, timed without the plain version.
+    for qn, k, w in TABLE1_HAMMING_SHAPES:
+        a, c = words(qn, w), words(qn, k, w)
+        if not torch.equal(hamming_rows(a, c), hamming_rows_ref(a, c)):
+            raise AssertionError(f"hamming_rows != plain version at {(qn, k, w)}")
+        b_ms, b_by = bound((qn * w + qn * k * w + qn * k) * 4, 3 * qn * k * w)
+        ham_times[(qn, k, w)] = {"ms": median_ms(lambda: hamming_rows(a, c), reps),
+                                 "bound_ms": b_ms, "bound_by": b_by}
+        del a, c
     search_t, merge_t = ham_times[(2048, 48, 12)], ham_times[(MERGE_CHUNK, 96, 12)]
     rows.append({
         "name": "hamming_rows", "route": "cuda",
@@ -299,19 +315,32 @@ def phase_kernel_parity(torch, reps: int):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "shape": [qn, c, d],
     })
+    # Table 1's stage 2 at the mean pool (2h + 1) k2 of its 160- and 120-tree
+    # rows: timed only (the plain version would hold 15 GB at once).
+    t1_times = {}
+    for qn, c, d in TABLE1_QDIST_SHAPES:
+        w = -(-d // 8)
+        pool = words(qn, c, w)
+        b_ms, b_by = bound((qn * d + qn * c * w + d * 16 + qn * c) * 4, 3 * qn * c * d)
+        t1_times[str([qn, c, d])] = {
+            "ms": median_ms(lambda: qdist_windows(q, pool, cent), reps),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del pool
     emit({"phase": "kernel_parity", "kernel": "qdist_windows",
           "rtol": DIST_RTOL, "atol": DIST_ATOL,
           "max_abs_err": {str(list(s)): e for s, e in errs.items()},
-          **{x: rows[-1][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+          **{x: rows[-1][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+          "table1_times": t1_times})
     del q, win, cent, keep
     torch.cuda.empty_cache()
 
     # --- pack_bits: exact ---------------------------------------------------
     # Shapes: the sketches of the corpus, one key chunk of the curve, the
-    # keys and sketches of one LSM seal, odd.
+    # keys and sketches of one LSM seal, one query chunk's keys (a tree of
+    # a search), odd.
     pack_times = {}
     for n, k in ((3_000_000, 384), (262_144, 448), (LSM_BUFFER, 448),
-                 (LSM_BUFFER, 384), (37, 61)):
+                 (LSM_BUFFER, 384), (2048, 448), (37, 61)):
         bits = torch.randint(0, 2, (n, k), generator=g, device=dev,
                              dtype=torch.uint8)
         got, ref = pack_bits(bits), pack_bits_ref(bits)
@@ -342,13 +371,14 @@ def phase_kernel_parity(torch, reps: int):
            for x in ("ms", "plain_ms", "bound_ms")},
     })
     emit({"phase": "kernel_parity", "kernel": "pack_bits", "exact": True,
-          "shapes": [[3_000_000, 384], [262_144, 448], [LSM_BUFFER, 448],
+          "shapes": [[3_000_000, 384], [262_144, 448], [LSM_BUFFER, 448], [2048, 448],
                      [LSM_BUFFER, 384], [37, 61]],
           "times": {str(list(s)): t for s, t in pack_times.items()}})
 
     # --- hamming_matrix: exact; qdist, qdist_from_packed: rtol 1e-5, atol 1e-6
-    # At the kernel bench's shapes and one ragged shape each; their times
-    # are phase kernel_bench's.
+    # At the kernel bench's shapes and one ragged shape each, and the ADC
+    # kernels also at a ragged shape of many 128 x 128 tiles whose rows are
+    # not 16-byte aligned; their times are phase kernel_bench's.
     for qn, c, w in (kernel_bench.HAMMING_SHAPE, (37, 333, 14)):
         a, b = words(qn, w), words(c, w)
         got, ref = hamming_matrix(a, b), hamming_matrix_ref(a, b)
@@ -359,7 +389,7 @@ def phase_kernel_parity(torch, reps: int):
     emit({"phase": "kernel_parity", "kernel": "hamming_matrix", "exact": True,
           "shapes": [list(kernel_bench.HAMMING_SHAPE), [37, 333, 14]]})
     dense_errs = {"hamming_matrix": 0.0, "qdist": {}, "qdist_from_packed": {}}
-    for qn, c, d in (kernel_bench.QDIST_SHAPE, (37, 333, 61)):
+    for qn, c, d in (kernel_bench.QDIST_SHAPE, (37, 333, 61), (300, 20000, 385)):
         q = torch.randn(qn, d, generator=g, device=dev)
         codes = torch.randint(0, 16, (c, d), generator=g, device=dev, dtype=torch.uint8)
         cent = torch.sort(torch.randn(d, 16, generator=g, device=dev), dim=1).values

@@ -35,7 +35,7 @@ from repro_torch.kernels.hamming import hamming_matrix, hamming_matrix_ref
 from repro_torch.kernels.qdist import (qdist, qdist_from_packed, qdist_packed_ref,
                                        qdist_u8_ref)
 
-__all__ = ["main", "bound", "median_ms", "HBM_BYTES_PER_S", "FP32_OPS_PER_S"]
+__all__ = ["main", "inputs", "bound", "median_ms", "HBM_BYTES_PER_S", "FP32_OPS_PER_S"]
 
 # Published peaks of one H100 SXM (dense, at its 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -80,6 +80,26 @@ def median_ms(fn: Callable[[], object], reps: int) -> float:
     return times[len(times) // 2]
 
 
+def inputs(dev, hamming_shape=HAMMING_SHAPE, qdist_shape=QDIST_SHAPE
+           ) -> Dict[str, torch.Tensor]:
+    """The bench's inputs on ``dev``, drawn from numpy seed 0 in this order:
+    Hamming words ``a`` (Q, W) and ``b`` (C, W); normal data whose 4-bit
+    ``codes``, nibble-``packed`` codes, ``centroids`` and dequantized rows
+    ``recon`` come from ``quantize.fit`` and ``encode``; normal ``queries``."""
+    rng = np.random.default_rng(0)
+    q, c, w = hamming_shape
+    a = torch.from_numpy(rng.integers(0, 2**32, (q, w), dtype=np.uint32).view(np.int32))
+    b = torch.from_numpy(rng.integers(0, 2**32, (c, w), dtype=np.uint32).view(np.int32))
+    cq, cc, d = qdist_shape
+    data = torch.from_numpy(rng.normal(size=(cc, d)).astype(np.float32)).to(dev)
+    quant = quantize.fit(data, bits=4)
+    codes = quantize.encode(quant, data)
+    queries = torch.from_numpy(rng.normal(size=(cq, d)).astype(np.float32)).to(dev)
+    return {"a": a.to(dev), "b": b.to(dev), "queries": queries, "codes": codes,
+            "packed": quantize.pack_codes(codes), "centroids": quant.centroids,
+            "recon": quantize.decode(quant, codes)}
+
+
 def _row(name: str, kernel: Callable, plain: Callable, n_bytes: int, n_ops: int,
          exact: bool, on_card: bool, library: Callable = None) -> Dict:
     got = kernel()
@@ -116,13 +136,11 @@ def main(device: str = "cuda", *, hamming_shape=HAMMING_SHAPE,
     if on_card and not torch.cuda.is_available():
         raise RuntimeError("kernel_bench runs on CUDA by default and no GPU is "
                            "available; pass device='cpu' to run on the CPU")
-    rng = np.random.default_rng(0)
+    x = inputs(dev, hamming_shape, qdist_shape)
     rows = []
 
     q, c, w = hamming_shape
-    a = torch.from_numpy(rng.integers(0, 2**32, (q, w), dtype=np.uint32).view(np.int32))
-    b = torch.from_numpy(rng.integers(0, 2**32, (c, w), dtype=np.uint32).view(np.int32))
-    a, b = a.to(dev), b.to(dev)
+    a, b = x.pop("a"), x.pop("b")
     rows.append(_row(
         f"hamming_{q}x{c}x{32 * w}b", lambda: hamming_matrix(a, b),
         lambda: hamming_matrix_ref(a, b), (q * w + c * w + q * c) * 4, 3 * q * c * w,
@@ -130,15 +148,9 @@ def main(device: str = "cuda", *, hamming_shape=HAMMING_SHAPE,
     del a, b
 
     cq, cc, d = qdist_shape
-    data = torch.from_numpy(rng.normal(size=(cc, d)).astype(np.float32)).to(dev)
-    quant = quantize.fit(data, bits=4)
-    codes = quantize.encode(quant, data)
-    packed = quantize.pack_codes(codes)
-    queries = torch.from_numpy(rng.normal(size=(cq, d)).astype(np.float32)).to(dev)
-    cent = quant.centroids
+    queries, codes, packed = x["queries"], x["codes"], x["packed"]
+    cent, recon = x["centroids"], x["recon"]
     levels = cent.shape[1]
-    recon = quantize.decode(quant, codes)
-    del data
 
     def cdist_sq():
         return torch.cdist(queries, recon) ** 2

@@ -97,6 +97,102 @@ def test_dense_qdist_kernels_within_contract(gen, q, c, d):
                                    rtol=DIST_RTOL, atol=DIST_ATOL)
 
 
+def _dense_launchers(codes):
+    """(name, wrapper, plain version, codes argument) of kernels 5-6."""
+    from repro_torch.core.quantize import pack_codes
+
+    return (("qdist", qdist, qdist_u8_ref, codes),
+            ("qdist_from_packed", qdist_from_packed, qdist_packed_ref, pack_codes(codes)))
+
+
+# Tile edges of the 128 x 128 block and the 32-dim stage: Q and C of 1,
+# 127, 128, 129, 257; D of 1, 7, 8, 15, 16, 17, 383, 384, 385 (rows not
+# 16-byte aligned take the slower copies); one ragged shape of many blocks.
+@pytest.mark.parametrize("q,c,d", [
+    (1, 257, 1), (127, 128, 7), (128, 129, 8), (129, 127, 15), (257, 1, 16),
+    (128, 128, 17), (129, 257, 383), (127, 129, 384), (257, 128, 385),
+    (300, 20000, 385),
+])
+def test_dense_qdist_kernels_at_tile_edges(gen, q, c, d):
+    queries = torch.randn(q, d, generator=gen, device="cuda")
+    codes = torch.randint(0, 16, (c, d), generator=gen, device="cuda", dtype=torch.uint8)
+    cent = torch.sort(torch.randn(d, 16, generator=gen, device="cuda"), dim=1).values
+    for name, fn, ref, arg in _dense_launchers(codes):
+        before = fn.launches
+        got = fn(queries, arg, cent)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        torch.testing.assert_close(got, ref(queries, arg, cent),
+                                   rtol=DIST_RTOL, atol=DIST_ATOL, msg=name)
+
+
+@pytest.mark.parametrize("levels", [5, 256])
+@pytest.mark.parametrize("q,c,d", [(129, 257, 384), (37, 333, 61)])
+def test_dense_qdist_u8_kernel_other_levels(gen, levels, q, c, d):
+    """The u8 kernel with L other than 16 (every code < L): L = 5 stages
+    its centroid rows 4 bytes at a time, L = 256 a 32 KB table a stage."""
+    queries = torch.randn(q, d, generator=gen, device="cuda")
+    codes = torch.randint(0, levels, (c, d), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+    cent = torch.randn(d, levels, generator=gen, device="cuda")
+    before = qdist.launches
+    got = qdist(queries, codes, cent)
+    torch.cuda.synchronize()
+    assert qdist.launches == before + 1
+    torch.testing.assert_close(got, qdist_u8_ref(queries, codes, cent),
+                               rtol=DIST_RTOL, atol=DIST_ATOL)
+
+
+@pytest.mark.parametrize("q,c,d", [(130, 300, 385), (256, 1024, 384)])
+def test_dense_qdist_kernels_read_exact_zero_on_equal_rows(gen, q, c, d):
+    """A query equal to a dequantized candidate row reads exactly 0.0: the
+    kernels sum (q - r)^2 directly.  The expanded |q|^2 - 2 q.r + |r|^2
+    would leave an error that grows with |q|^2 (here ~100 d)."""
+    codes = torch.randint(0, 16, (c, d), generator=gen, device="cuda", dtype=torch.uint8)
+    cent = 10 * torch.sort(torch.randn(d, 16, generator=gen, device="cuda"), dim=1).values
+    rows = torch.randperm(c, generator=gen, device="cuda")[:q]
+    queries = cent[torch.arange(d, device="cuda"), codes[rows].long()].contiguous()
+    for name, fn, _, arg in _dense_launchers(codes):
+        before = fn.launches
+        got = fn(queries, arg, cent)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1, name
+        on_equal = got[torch.arange(q, device="cuda"), rows]
+        assert torch.equal(on_equal, torch.zeros_like(on_equal)), name
+        assert bool((got >= 0).all()), name
+
+
+def _offset_view(x, offset):
+    """A contiguous copy of ``x`` that starts ``offset`` elements into a
+    larger buffer, so its base pointer is not 16-byte aligned."""
+    buf = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+@pytest.mark.parametrize("q,c,d", [(257, 300, 384), (37, 333, 64)])
+def test_dense_qdist_kernels_on_unaligned_views(gen, q, c, d):
+    """Queries, codes and centroids that are views at an odd storage offset
+    (rows whose length would allow 16-byte copies, base pointers that do
+    not) read as their aligned copies do."""
+    queries = torch.randn(q, d, generator=gen, device="cuda")
+    codes = torch.randint(0, 16, (c, d), generator=gen, device="cuda", dtype=torch.uint8)
+    cent = torch.sort(torch.randn(d, 16, generator=gen, device="cuda"), dim=1).values
+    for name, fn, ref, arg in _dense_launchers(codes):
+        want = ref(queries, arg, cent)
+        for views in ((1, 0, 0), (0, 1, 0), (0, 0, 1), (3, 1, 1)):
+            q_v, arg_v, cent_v = (_offset_view(x, k) if k else x
+                                  for x, k in zip((queries, arg, cent), views))
+            before = fn.launches
+            got = fn(q_v, arg_v, cent_v)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1, name
+            torch.testing.assert_close(got, want, rtol=DIST_RTOL, atol=DIST_ATOL,
+                                       msg=f"{name} offsets {views}")
+
+
 def test_wrappers_reject_mixed_devices(gen):
     a = _words(gen, 4, 3)
     with pytest.raises(ValueError):
