@@ -12,10 +12,16 @@ equal those on the CPU, then drives the paths at full width on
 * Task 1: ``HilbertIndex.build`` with the README quickstart configuration
   and ``.search`` of 8192 queries; recall@30 against exact ground truth,
   the kernel route against the plain route, save -> load -> search.
+  Between the build and the search, phase ``stage2_step`` holds
+  ``qdist_windows_rows`` on starts from real stage-1 results of the index
+  (the engine's pool and Table 1's 120-tree mean pool) and times stage 2's
+  distance step both ways: gather the windows, then the pre-gathered
+  launch, against the launch that reads the windows from the codes.
 * The paper's Table 1 (phase ``table1``: ``repro_torch.benchmarks.
   task1_table1``): its 16 rows (160 and 120 trees of the PUBMED23 forest,
-  k1 up to 4000) on the same points and the first 2048 queries, scored
-  against the exact neighbours phase ``recall`` computed.
+  k1 up to 4000) on the same points and the first 2048 queries, one timed
+  search a row after a warm-up search a forest, scored against the exact
+  neighbours phase ``recall`` computed.
 * LSM (phase ``lsm``): ``MutableHilbertIndex`` with the same forest and
   stored points bulk-loads 2,500,000 rows as one segment, saves, turns on
   its WAL, then streams the other 500,000 rows in inserts of 4096 with
@@ -27,11 +33,11 @@ equal those on the CPU, then drives the paths at full width on
   segments, no WAL) bulk-loaded with 2,500,000 rows, two serve threads,
   background maintenance (compaction on a thread) and a ``MetricsServer``,
   as ``benchmarks/serving.py``'s ``run_phase`` drives it: three windows of
-  4 client threads sending 256-query requests — ``baseline`` (200
+  4 client threads sending 256-query requests — ``baseline`` (100
   requests, no writes), ``churn_maintained`` (a writer inserts 4096 rows
   every 0.25 s and deletes the batch it inserted two batches before; at
-  least 400 requests and 2 swaps, at most 120 s) and ``probe`` (tracing
-  on, a 25 % recall probe held to an offline exact evaluation, 100
+  least 400 requests and 2 swaps, at most 80 s) and ``probe`` (tracing
+  on, a 25 % recall probe held to an offline exact evaluation, 50
   requests).  Then a last forced maintenance: every acknowledged,
   undeleted id is live and no other, and a 2048-query search equals a
   fresh build over the live points bit for bit; ``/metrics``,
@@ -119,11 +125,11 @@ ENGINE_CLIENTS = 4
 ENGINE_REQUEST = 256  # queries per request
 ENGINE_WRITE_BATCH = 4096
 ENGINE_WRITE_PAUSE_S = 0.25
-ENGINE_BASELINE_REQUESTS = 200
+ENGINE_BASELINE_REQUESTS = 100
 ENGINE_CHURN_REQUESTS = 400
 ENGINE_CHURN_SWAPS = 2
-ENGINE_CHURN_CAP_S = 120.0
-ENGINE_PROBE_REQUESTS = 100
+ENGINE_CHURN_CAP_S = 80.0
+ENGINE_PROBE_REQUESTS = 50
 ENGINE_PROBE = dict(fraction=0.25, seed=0)
 ENGINE_RECALL_TOL = 0.02  # online vs offline recall (repro's own criterion)
 ENGINE_CHECK_QUERIES = 2048
@@ -139,6 +145,8 @@ ENGINE_SERIES = [
 # Phase table1: the paper's 16 Table-1 rows (repro_torch.benchmarks.
 # task1_table1) over the corpus, on this many of the queries.
 TABLE1_QUERIES = 2048
+TABLE1_TIMED_SEARCHES = 1  # a row; the module's default of 3 took ~100 s more
+PROFILE_QUERIES = 2048  # phase profile's search: one query chunk
 
 # Device memory the engine phase may leave allocated after its cleanup.
 ENGINE_RETAINED_GIB = 1.0
@@ -152,6 +160,11 @@ MERGE_CHUNK = 1 << 16  # rows of one Task-2 merge pass (knn_graph's default)
 # (2425); stage 2 at the mean pool (2h + 1) k2 (5 x 335 and 5 x 975).
 TABLE1_HAMMING_SHAPES = ((2048, 1255, 12), (2048, 2425, 12))
 TABLE1_QDIST_SHAPES = ((2048, 1675, 384), (2048, 4875, 384))
+# Stage 2's distance step (phase stage2_step) on stage-1 positions of the
+# Task-1 index: (k1, k2) of the engine's pool (the README's 48, 384) and of
+# Table 1's 120-tree mean pool (2425, 975), h 2, one query chunk of 2048.
+STAGE2_STEPS = ((48, 384), (2425, 975))
+STAGE2_H = 2
 
 
 def kernel_fns():
@@ -235,7 +248,9 @@ def phase_kernel_parity(torch, reps: int):
                                              hamming_rows, hamming_rows_ref)
     from repro_torch.kernels.qdist import (qdist, qdist_from_packed,
                                            qdist_packed_ref, qdist_u8_ref,
-                                           qdist_windows, qdist_windows_ref)
+                                           qdist_windows, qdist_windows_ref,
+                                           qdist_windows_rows,
+                                           qdist_windows_rows_ref, window_rows)
 
     g = torch.Generator(device="cuda").manual_seed(1234)
     dev = "cuda"
@@ -287,9 +302,14 @@ def phase_kernel_parity(torch, reps: int):
           "times": {str(list(s)): t for s, t in ham_times.items()}})
 
     # --- qdist_windows: rtol 1e-5, atol 1e-6 ------------------------------
-    errs = {}
+    # Both wrappers of the one kernel: pre-gathered windows (qdist_windows)
+    # and windows read from the rows (qdist_windows_rows: 384 windows of 5
+    # and 111 of 3 over random codes, a window at 0 and one at n - L in
+    # every query); the two bit-equal on the same rows.
+    errs, rows_errs = {}, {}
     keep = None
-    for qn, c, d in ((2048, 1920, 384), (37, 333, 61)):
+    for (qn, c, d), (n_rows, window) in zip(((2048, 1920, 384), (37, 333, 61)),
+                                            ((500_000, 5), (2000, 3))):
         w = -(-d // 8)
         q = torch.randn(qn, d, generator=g, device=dev)
         win = words(qn, c, w)
@@ -301,6 +321,20 @@ def phase_kernel_parity(torch, reps: int):
         if keep is None:
             keep = (q, win, cent, errs[(qn, c, d)])
         del got, ref
+        codes = words(n_rows, w)
+        starts = torch.randint(0, n_rows - window + 1, (qn, c // window), generator=g,
+                               device=dev, dtype=torch.int32)
+        starts[:, 0], starts[:, -1] = 0, n_rows - window
+        got = qdist_windows_rows(q, codes, starts, window, cent)
+        ref = qdist_windows_rows_ref(q, codes, starts, window, cent)
+        pre = qdist_windows(q, window_rows(codes, starts, window).reshape(qn, c, w), cent)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=DIST_RTOL, atol=DIST_ATOL)
+        if not torch.equal(got, pre):
+            raise AssertionError(f"qdist_windows_rows != qdist_windows on the same rows "
+                                 f"at {(qn, c, d)}")
+        rows_errs[(qn, c, d)] = float((got - ref).abs().max())
+        del got, ref, pre, codes, starts
     q, win, cent, err = keep
     qn, c, d = 2048, 1920, 384
     w = -(-d // 8)
@@ -311,7 +345,7 @@ def phase_kernel_parity(torch, reps: int):
         "name": "qdist_windows", "route": "cuda",
         "source": "src/repro_torch/csrc/qdist_windows.cu",
         "replaces": "src/repro/kernels/qdist/kernel.py:179",
-        "max_abs_err": err,
+        "max_abs_err": max(err, *rows_errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "shape": [qn, c, d],
     })
@@ -329,6 +363,8 @@ def phase_kernel_parity(torch, reps: int):
     emit({"phase": "kernel_parity", "kernel": "qdist_windows",
           "rtol": DIST_RTOL, "atol": DIST_ATOL,
           "max_abs_err": {str(list(s)): e for s, e in errs.items()},
+          "rows_max_abs_err": {str(list(s)): e for s, e in rows_errs.items()},
+          "rows_bit_equal_to_pre_gathered": True,
           **{x: rows[-1][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
           "table1_times": t1_times})
     del q, win, cent, keep
@@ -356,6 +392,17 @@ def phase_kernel_parity(torch, reps: int):
                                       max(5, reps // 4)),
                 "bound_ms": b_ms, "bound_by": b_by}
         del bits, got, ref
+    # A base one byte past 16 (the byte path), as a view into a larger
+    # buffer gives: exact, timed.
+    n, k = LSM_BUFFER, 448
+    buf = torch.randint(0, 2, (n * k + 1,), generator=g, device=dev, dtype=torch.uint8)
+    bits = buf[1:].view(n, k)
+    if not torch.equal(pack_bits(bits), pack_bits_ref(bits)):
+        raise AssertionError(f"pack_bits != plain version at {(n, k)} one byte off")
+    b_ms, b_by = bound(n * k + n * (k // 32) * 4, n * k)
+    unaligned = {"ms": median_ms(lambda: pack_bits(bits), reps), "bound_ms": b_ms,
+                 "bound_by": b_by}
+    del buf, bits
     torch.cuda.empty_cache()
     rows.append({
         "name": "pack_bits", "route": "cuda",
@@ -373,7 +420,9 @@ def phase_kernel_parity(torch, reps: int):
     emit({"phase": "kernel_parity", "kernel": "pack_bits", "exact": True,
           "shapes": [[3_000_000, 384], [262_144, 448], [LSM_BUFFER, 448], [2048, 448],
                      [LSM_BUFFER, 384], [37, 61]],
-          "times": {str(list(s)): t for s, t in pack_times.items()}})
+          "times": {str(list(s)): t for s, t in pack_times.items()},
+          "unaligned_shape": [LSM_BUFFER, 448], "unaligned_offset_bytes": 1,
+          "unaligned": unaligned})
 
     # --- hamming_matrix: exact; qdist, qdist_from_packed: rtol 1e-5, atol 1e-6
     # At the kernel bench's shapes and one ragged shape each, and the ADC
@@ -620,7 +669,8 @@ def device_time(prof, top: int):
     return sum(r[0] for r in kernels), fmt(kernels), fmt(ops), copies
 
 
-def phase_profile(torch, search, phase: str, *, cpu_ops: bool, top: int = 12):
+def phase_profile(torch, search, phase: str, *, cpu_ops: bool, queries: int,
+                  top: int = 12):
     """Device time by kernel over one warm ``search()``, its host<->device
     copies, and the device's busy share.
 
@@ -641,7 +691,7 @@ def phase_profile(torch, search, phase: str, *, cpu_ops: bool, top: int = 12):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_ms, kernels, ops, copies = device_time(prof, top)
-    emit({"phase": phase, "wall_ms": wall_ms, "device_ms": device_ms,
+    emit({"phase": phase, "queries": queries, "wall_ms": wall_ms, "device_ms": device_ms,
           "busy_share": device_ms / wall_ms if device_ms else None,
           "copies": copies, "top_kernels": kernels, "top_ops": ops,
           "profile_s": time.perf_counter() - t0})
@@ -660,8 +710,10 @@ def phase_data(torch, n: int, nq: int, seed: int):
     return allpts[:n], allpts[n:]
 
 
-def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
-    """Task 1 at full width; returns the kernel launches of its build and search."""
+def phase_main_path(torch, cfg, params, points, queries, recall_floor: float,
+                    after_build=None):
+    """Task 1 at full width; returns the kernel launches of its build and
+    search.  ``after_build(index)`` runs between the two counted runs."""
     from repro_torch.index import HilbertIndex, build_with_timings
 
     n, nq = points.shape[0], queries.shape[0]
@@ -676,6 +728,8 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
           "total_s": build_s, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
           "memory": index.memory_report(), "launches": build_launches})
     require_launched("task-1 build", build_launches, ["pack_bits"])
+    if after_build is not None:
+        after_build(index)
 
     reset_launches()
     t0 = time.perf_counter()
@@ -716,8 +770,11 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
           "max_abs_dist_diff": float((dists - dists_r).abs().max()),
           "plain_route_ms_per_query": ref_s * 1e3 / nq})
 
-    phase_profile(torch, lambda: index.search(queries, params), "profile",
-                  cpu_ops=True)
+    # One query chunk: collecting the CPU ops' events costs ~50 s a full
+    # search of 8192 queries.
+    pq = queries[:PROFILE_QUERIES]
+    phase_profile(torch, lambda: index.search(pq, params), "profile", cpu_ops=True,
+                  queries=pq.shape[0])
 
     path = os.path.join(ROOT, "build", "smoke_index")
     shutil.rmtree(path, ignore_errors=True)
@@ -740,6 +797,63 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float):
     return {"build": build_launches, "search": launches}, truth
 
 
+def phase_stage2_step(torch, index, queries, reps: int) -> dict:
+    """Stage 2's distance step on starts from real stage-1 results of the
+    Task-1 index (STAGE2_STEPS; neighbouring windows overlap as in a
+    search; one query's first window moved to row 0 and another's to
+    n - L): qdist_windows_rows bit-equal to the pre-gathered launch on the
+    same rows (which phase kernel_parity holds to the plain version at the
+    engine's shape); then the step timed both ways: the parent's route
+    (gather the (Q, k2, L, W) block, then the pre-gathered launch) and the
+    fused launch.  Its launches are not a path's: the counts are reset
+    after it."""
+    from repro_torch.benchmarks.kernel_bench import bound, median_ms
+    from repro_torch.core import search as search_lib
+    from repro_torch.core import sketch
+    from repro_torch.kernels.qdist import qdist_windows, qdist_windows_rows, window_rows
+
+    q = queries[:TABLE1_QUERIES].contiguous()
+    qn, d = q.shape
+    f, fcfg = index.forest, index.config.forest
+    n, codes, cent = index.n_points, index.codes_master, index.quant.centroids
+    w = codes.shape[1]
+    qsk = sketch.make_sketches(index.quant, q)
+    steps = {}
+    for k1, k2 in STAGE2_STEPS:
+        best_pos = search_lib.stage1_forest(
+            q, qsk, f.orders, f.directories, f.lo, f.hi, f.perms, f.flips,
+            index.master_rank, index.sketches_master, bits=fcfg.bits,
+            key_bits=fcfg.key_bits, leaf_size=fcfg.leaf_size, k1=k1, k2=k2,
+            use_kernels=True)
+        starts, _, window = search_lib._expand_windows(best_pos, n, STAGE2_H)
+        starts = starts.contiguous()
+        starts[0, 0], starts[1, 0] = 0, n - window
+        c = k2 * window
+        got = qdist_windows_rows(q, codes, starts, window, cent)
+        pre = qdist_windows(q, window_rows(codes, starts, window).reshape(qn, c, w), cent)
+        torch.cuda.synchronize()
+        if not torch.equal(got, pre):
+            raise AssertionError(f"stage2_step: fused != pre-gathered at k2 {k2}")
+        rows_read = torch.unique(
+            starts[:, :, None] + torch.arange(window, device=starts.device)).numel()
+        b_ms, b_by = bound((rows_read * w + starts.numel() + qn * d + d * 16 + qn * c) * 4,
+                           3 * qn * c * d)
+        steps[str([qn, c, d])] = {
+            "k1": k1, "k2": k2, "window": window,
+            "rows_read": rows_read, "candidate_rows": qn * c,
+            "gather_then_launch_ms": median_ms(
+                lambda: qdist_windows(q, window_rows(codes, starts, window)
+                                      .reshape(qn, c, w), cent), reps),
+            "fused_ms": median_ms(
+                lambda: qdist_windows_rows(q, codes, starts, window, cent), reps),
+            "fused_bound_ms": b_ms, "fused_bound_by": b_by}
+        del best_pos, starts, got, pre
+    torch.cuda.empty_cache()
+    emit({"phase": "stage2_step", "queries": qn, "h": STAGE2_H,
+          "fused_bit_equal_to_pre_gathered": True, "steps": steps})
+    return steps
+
+
 def phase_table1(torch, points, queries, truth):
     """The paper's Table 1 (``repro_torch.benchmarks.task1_table1``): its 16
     rows on the corpus, the first TABLE1_QUERIES queries and their exact
@@ -750,7 +864,8 @@ def phase_table1(torch, points, queries, truth):
     nq = min(TABLE1_QUERIES, queries.shape[0])
     reset_launches()
     t0 = time.perf_counter()
-    rows = task1_table1.main(points=points, queries=queries[:nq], truth=truth[:nq])
+    rows = task1_table1.main(points=points, queries=queries[:nq], truth=truth[:nq],
+                             timed_searches=TABLE1_TIMED_SEARCHES)
     launches = read_launches(torch)
     builds = {r["n_trees"]: r["build_s"] for r in rows}
     emit({"phase": "table1", "n": points.shape[0], "queries": nq, "rows": rows,
@@ -892,7 +1007,7 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
         stream_ids = ids
         # Where a streamed search's time goes: segments, buffer, host copies.
         phase_profile(torch, lambda: mut.search(q, params, allow_rewrite=False),
-                      "lsm_profile", cpu_ops=False)
+                      "lsm_profile", cpu_ops=False, queries=q.shape[0])
 
         t0 = time.perf_counter()
         mut.compact()
@@ -1651,8 +1766,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_device_parity(torch, cfg, lsm_cfg, PARITY_ROWS, args.seed)
     points, queries = phase_data(torch, args.n, args.queries, args.seed)
-    main_launches, truth = phase_main_path(torch, cfg, params, points, queries,
-                                           args.recall_floor)
+    step = {}
+    main_launches, truth = phase_main_path(
+        torch, cfg, params, points, queries, args.recall_floor,
+        after_build=lambda index: step.update(
+            phase_stage2_step(torch, index, queries, KERNEL_REPS)))
+    next(r for r in kernels if r["name"] == "qdist_windows")["stage2_step"] = step
     launches.update(main_launches)
     torch.cuda.empty_cache()
     launches.update(phase_table1(torch, points, queries, truth))

@@ -6,9 +6,9 @@ own: the 16 rows of ``repro_torch.configs.pubmed23.TABLE1`` at
 per tree count with the PUBMED23 forest (``leaf_size`` 100, 448-bit keys)
 and ``store_points=False``.  Per row it reports n, k1, k2, h, recall@30
 against exact neighbours, search time per query (the median of
-``TIMED_SEARCHES`` host-clocked, synchronized ``search`` calls of every
-query after one warm-up search per built index; each run's time is
-returned too), the build time of its tree count and the peak device
+``timed_searches``, by default ``TIMED_SEARCHES``, host-clocked,
+synchronized ``search`` calls of every query after one warm-up search per
+built index; each run's time is returned too), the build time of its tree count and the peak device
 memory of the build and search (not measured on the CPU).  The check is the JAX module's: the best row's recall@30
 exceeds 0.7.
 
@@ -61,7 +61,8 @@ def _sync(dev: torch.device) -> None:
 
 
 def main(rows: Optional[Sequence[Tuple[int, int, int, int]]] = None, *,
-         points=None, queries=None, truth=None, device: str = "cuda") -> List[Dict]:
+         points=None, queries=None, truth=None, device: str = "cuda",
+         timed_searches: int = TIMED_SEARCHES) -> List[Dict]:
     """Build, search and score every ``(n_trees, k1, k2, h)`` of ``rows``
     (default: :data:`GRID`); print a CSV line per row and return the rows.
 
@@ -103,7 +104,7 @@ def main(rows: Optional[Sequence[Tuple[int, int, int, int]]] = None, *,
         index, build_s, build_peak = built[n_trees]
         params = SearchParams(k1=k1, k2=k2, h=h, k=K)
         times = []
-        for _ in range(TIMED_SEARCHES):
+        for _ in range(timed_searches):
             _sync(dev)
             t0 = time.perf_counter()
             ids, _ = index.search(queries, params)

@@ -26,7 +26,8 @@ from repro_torch.core import hilbert, quantize, sketch
 from repro_torch.core.quantize import Quantizer
 from repro_torch.core.types import ForestConfig
 from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
-from repro_torch.kernels.qdist import qdist_windows, qdist_windows_ref
+from repro_torch.kernels.qdist import qdist_windows_rows, qdist_windows_rows_ref
+from repro_torch.kernels.qdist import window_rows as _window_slices
 
 __all__ = [
     "hilbert_master_sort",
@@ -143,14 +144,6 @@ def _expand_windows(best_pos, n: int, h: int):
     return starts, pos, window
 
 
-def _window_slices(rows: torch.Tensor, starts: torch.Tensor, window: int
-                   ) -> torch.Tensor:
-    """Read (Q, k2) contiguous row windows: (n, W) -> (Q, k2, window, W)."""
-    idx = starts[:, :, None] + torch.arange(
-        window, dtype=starts.dtype, device=starts.device)
-    return rows[idx]
-
-
 def _dedup_rank_topk(pos, d2, valid, master_order, k: int):
     """Sort by position, mask duplicates/invalid to +inf, final top-k.
 
@@ -200,17 +193,17 @@ def stage2_packed_windows(
 ):
     """Stage 2 on the resident nibble-packed codes (n, ceil(d/8)).
 
-    Candidate codes are read as contiguous ±h windows of the packed words;
-    distances come from :func:`repro_torch.kernels.qdist.qdist_windows`
-    (``use_kernels``) or its plain version.
+    Candidate codes are contiguous ±h windows of the packed words.  With
+    ``use_kernels`` the distances come from
+    :func:`repro_torch.kernels.qdist.qdist_windows_rows`, whose kernel reads
+    the windows from ``codes_packed`` itself; the plain route gathers the
+    (Q, k2, window, W) block and scores it with ``qdist_windows_ref``.
     """
     n = master_order.shape[0]
-    qn, k2 = best_pos.shape
+    qn = best_pos.shape[0]
     starts, pos, window = _expand_windows(best_pos, n, h)
-    win = _window_slices(codes_packed, starts, window)  # (Q, k2, window, W)
-    win = win.reshape(qn, k2 * window, codes_packed.shape[1])
-    d2 = (qdist_windows if use_kernels else qdist_windows_ref)(
-        queries, win, quant.centroids)
+    d2 = (qdist_windows_rows if use_kernels else qdist_windows_rows_ref)(
+        queries, codes_packed, starts, window, quant.centroids)
     valid = (best_pos >= 0)[:, :, None].expand(pos.shape)
     return _dedup_rank_topk(
         pos.reshape(qn, -1), d2, valid.reshape(qn, -1), master_order, k

@@ -6,7 +6,8 @@ raises.
 
 * :mod:`.hamming`: ``hamming_rows`` (stage-1 filter, per-query candidates)
   and ``hamming_matrix`` (dense);
-* :mod:`.qdist`: ``qdist_windows`` (stage-2 ADC, per-query windows),
+* :mod:`.qdist`: ``qdist_windows`` and ``qdist_windows_rows`` (stage-2 ADC
+  on per-query windows, pre-gathered or read from the resident codes),
   ``qdist`` (dense, uint8 codes) and ``qdist_from_packed`` (dense,
   nibble-packed codes);
 * :mod:`.bitpack`: ``pack_bits`` (sketches and Hilbert keys).

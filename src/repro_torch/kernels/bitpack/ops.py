@@ -3,7 +3,8 @@
 ``pack_bits`` is the counterpart of ``repro.kernels.bitpack.pack_bits``
 (Pallas ``pack_bits_kernel``): an (N, K) {0,1} uint8 or bool matrix to
 (N, ceil(K/32)) 32-bit words held in int32, MSB first, padding bits zero.
-It packs the sketches (``core/sketch.py``) and the Hilbert keys
+Every byte must be 0 or 1 (a bool tensor's bytes are); other values are
+outside the contract of both versions.  It packs the sketches (``core/sketch.py``) and the Hilbert keys
 (``core/hilbert.py``).  The kernel lives in ``repro_torch/csrc/pack_bits.cu``.
 
 This module must not import ``repro_torch.core.sketch``: the sketch module
@@ -20,7 +21,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import check, count_launch, raise_on_error
 
-__all__ = ["pack_bits", "pack_bits_ref"]
+__all__ = ["pack_bits", "pack_bits_ref", "vec_ok"]
 
 
 def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:
@@ -42,9 +43,15 @@ def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:
 def _launcher():
     fn = _build.library("pack_bits").pack_bits_launch
     fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def vec_ok(bits: torch.Tensor) -> bool:
+    """Whether the kernel's 16-byte path may read ``bits``: its base on 16
+    bytes and K % 16 == 0, so every word's 32 columns start on 16 bytes."""
+    return bits.data_ptr() % 16 == 0 and bits.shape[1] % 16 == 0
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -52,6 +59,8 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take :func:`pack_bits_ref`; CUDA tensors launch the kernel
     on the current stream (and count it in ``pack_bits.launches``) or raise.
+    The kernel takes its 16-byte path where :func:`vec_ok` holds and its
+    byte path elsewhere.
     """
     if isinstance(bits, torch.Tensor) and bits.dtype == torch.bool:
         bits = bits.view(torch.uint8)
@@ -64,7 +73,7 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, -(-k // 32)), dtype=torch.int32, device=bits.device)
     if out.numel() == 0:
         return out
-    err = _launcher()(bits.data_ptr(), out.data_ptr(), n, k,
+    err = _launcher()(bits.data_ptr(), out.data_ptr(), n, k, int(vec_ok(bits)),
                       torch.cuda.current_stream(bits.device).cuda_stream)
     raise_on_error("pack_bits", err)
     count_launch(pack_bits)

@@ -5,4 +5,7 @@ from repro_torch.kernels.qdist.ops import (  # noqa: F401
     qdist_u8_ref,
     qdist_windows,
     qdist_windows_ref,
+    qdist_windows_rows,
+    qdist_windows_rows_ref,
+    window_rows,
 )

@@ -4,11 +4,15 @@
 ``repro.kernels.qdist.qdist_windows_from_packed`` (Pallas
 ``qdist_packed_windows_kernel``): fp32 queries (Q, D) against each query's
 own nibble-packed candidate codes (Q, C, ceil(D/8)) and (D, 16) centroids,
-giving (Q, C) fp32 squared L2.  The kernel lives in
-``repro_torch/csrc/qdist_windows.cu``.  Dim ``8w + s`` is nibble ``s`` of
-word ``w`` as :func:`repro_torch.core.quantize.pack_codes` writes it; the
-TPU kernel's ``packed_dim_order`` permutation fed its matrix unit and has
-no counterpart here.
+giving (Q, C) fp32 squared L2.  ``qdist_windows_rows`` computes the same
+function of the candidates that stage 2 reads by window: rows
+``starts[q, s] + i`` (i < L) of the resident (n, ceil(D/8)) codes, with no
+(Q, C, ceil(D/8)) block built.  One kernel serves both
+(``repro_torch/csrc/qdist_windows.cu``); both wrappers count its launches
+in ``qdist_windows.launches``.  Dim ``8w + s`` is nibble ``s`` of word
+``w`` as :func:`repro_torch.core.quantize.pack_codes` writes it; the TPU
+kernel's ``packed_dim_order`` permutation fed its matrix unit and has no
+counterpart here.
 
 ``qdist`` and ``qdist_from_packed`` are the counterparts of
 ``repro.kernels.qdist.qdist`` and ``qdist_from_packed`` (Pallas
@@ -29,7 +33,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import check, count_launch, raise_on_error, same
 
-__all__ = ["qdist_windows", "qdist_windows_ref", "qdist", "qdist_u8_ref",
+__all__ = ["qdist_windows", "qdist_windows_ref", "qdist_windows_rows",
+           "qdist_windows_rows_ref", "window_rows", "qdist", "qdist_u8_ref",
            "qdist_from_packed", "qdist_packed_ref"]
 
 LEVELS = 16  # nibble codes
@@ -51,12 +56,50 @@ def qdist_windows_ref(queries: torch.Tensor, packed_windows: torch.Tensor,
     return ((queries[:, None, :] - recon) ** 2).sum(-1)
 
 
+def window_rows(rows: torch.Tensor, starts: torch.Tensor, window: int
+                ) -> torch.Tensor:
+    """Read (Q, S) contiguous row windows: (n, W) -> (Q, S, window, W)."""
+    idx = starts[:, :, None] + torch.arange(
+        window, dtype=starts.dtype, device=starts.device)
+    return rows[idx]
+
+
+def qdist_windows_rows_ref(queries: torch.Tensor, codes_packed: torch.Tensor,
+                           starts: torch.Tensor, window: int,
+                           centroids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: :func:`window_rows`, then :func:`qdist_windows_ref`."""
+    qn, s = starts.shape
+    win = window_rows(codes_packed, starts, window)
+    return qdist_windows_ref(queries, win.reshape(qn, s * window, -1), centroids)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("qdist_windows").qdist_windows_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_windows(queries, rows, starts, n_s: int, window: int, centroids):
+    """Allocate (Q, S * window), launch the windows kernel, count it.
+
+    ``starts`` None is the pre-gathered layout: row ``q * S * window + c``.
+    """
+    qn, d = queries.shape
+    out = torch.empty((qn, n_s * window), dtype=torch.float32, device=queries.device)
+    if out.numel() == 0:
+        return out
+    err = _launcher()(
+        queries.data_ptr(), rows.data_ptr(),
+        None if starts is None else starts.data_ptr(), centroids.data_ptr(),
+        out.data_ptr(), qn, n_s, window, d, rows.shape[0],
+        torch.cuda.current_stream(queries.device).cuda_stream,
+    )
+    raise_on_error("qdist_windows", err)
+    count_launch(qdist_windows)
+    return out
 
 
 def qdist_windows(queries: torch.Tensor, packed_windows: torch.Tensor,
@@ -78,17 +121,42 @@ def qdist_windows(queries: torch.Tensor, packed_windows: torch.Tensor,
         return qdist_windows_ref(queries, packed_windows, centroids)
     if queries.device.type != "cuda":
         raise ValueError(f"qdist_windows: no kernel for device {queries.device}")
-    out = torch.empty((qn, c), dtype=torch.float32, device=queries.device)
-    if out.numel() == 0:
-        return out
-    err = _launcher()(
-        queries.data_ptr(), packed_windows.data_ptr(), centroids.data_ptr(),
-        out.data_ptr(), qn, c, w, d,
-        torch.cuda.current_stream(queries.device).cuda_stream,
-    )
-    raise_on_error("qdist_windows", err)
-    count_launch(qdist_windows)
-    return out
+    return _launch_windows(queries, packed_windows.view(qn * c, w), None, c, 1,
+                           centroids)
+
+
+def qdist_windows_rows(queries: torch.Tensor, codes_packed: torch.Tensor,
+                       starts: torch.Tensor, window: int,
+                       centroids: torch.Tensor) -> torch.Tensor:
+    """(Q, D) f32 x rows (n, ceil(D/8)) int32 x starts (Q, S) int32 x (D, 16)
+    f32 -> (Q, S * window) f32.
+
+    Candidate ``c`` of query ``q`` is row ``starts[q, c // window] + c %
+    window`` of ``codes_packed``.  Callers must clamp ``starts`` to ``[0, n -
+    window]``, as the search's ``_expand_windows`` does: the plain version
+    raises on a row outside ``[0, n)``, but the kernel does not check
+    ``starts`` on the host and gives such a row NaN, which a top-k ranks
+    last, so on CUDA a bad start loses its candidates without an error.
+    CPU tensors take :func:`qdist_windows_rows_ref`; CUDA tensors launch the
+    windows kernel on the current stream (and count it in
+    ``qdist_windows.launches``) or raise.
+    """
+    check("queries", queries, torch.float32, 2)
+    check("codes_packed", codes_packed, torch.int32, 2, queries.device)
+    check("starts", starts, torch.int32, 2, queries.device)
+    check("centroids", centroids, torch.float32, 2, queries.device)
+    qn, d = queries.shape
+    same("codes_packed W", codes_packed.shape[1:], (-(-d // 8),))
+    same("starts Q", starts.shape[:1], (qn,))
+    same("centroids", centroids.shape, (d, LEVELS))
+    if not isinstance(window, int) or window < 1:
+        raise ValueError(f"window: {window!r}, expected an int >= 1")
+    if queries.device.type == "cpu":
+        return qdist_windows_rows_ref(queries, codes_packed, starts, window, centroids)
+    if queries.device.type != "cuda":
+        raise ValueError(f"qdist_windows_rows: no kernel for device {queries.device}")
+    return _launch_windows(queries, codes_packed, starts, starts.shape[1], window,
+                           centroids)
 
 
 qdist_windows.launches = 0

@@ -12,7 +12,9 @@ from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
 from repro_torch.kernels.hamming import (hamming_matrix, hamming_matrix_ref,
                                          hamming_rows, hamming_rows_ref)
 from repro_torch.kernels.qdist import (qdist, qdist_from_packed, qdist_packed_ref,
-                                       qdist_u8_ref, qdist_windows, qdist_windows_ref)
+                                       qdist_u8_ref, qdist_windows, qdist_windows_ref,
+                                       qdist_windows_rows, qdist_windows_rows_ref,
+                                       window_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -56,15 +58,23 @@ def test_qdist_windows_kernel_within_contract(gen, q, c, d):
                                rtol=DIST_RTOL, atol=DIST_ATOL)
 
 
-@pytest.mark.parametrize("n,k", [(3000, 384), (262, 448), (37, 61), (1, 1), (5, 33)])
-def test_pack_bits_kernel_exact(gen, n, k):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n,k", [(3000, 384), (262, 448), (37, 61), (1, 1), (5, 33),
+                                 (1, 448), (64, 33), (300, 100), (7, 61), (129, 48)])
+def test_pack_bits_kernel_exact(gen, n, k, offset):
+    """Both paths of the kernel (16 bytes where the base lies on 16 bytes
+    and K % 16 == 0, bytes elsewhere), a base offset by ``offset`` bytes,
+    and bool input: bit-equal to the plain version."""
     bits = torch.randint(0, 2, (n, k), generator=gen, device="cuda", dtype=torch.uint8)
+    if offset:
+        bits = _offset_view(bits, offset)
+    want = pack_bits_ref(bits)
     before = pack_bits.launches
     got = pack_bits(bits)
     torch.cuda.synchronize()
     assert pack_bits.launches == before + 1
-    assert torch.equal(got, pack_bits_ref(bits))
-    assert torch.equal(pack_bits(bits.bool()), got)
+    assert torch.equal(got, want)
+    assert torch.equal(pack_bits(bits.bool()), want)
 
 
 @pytest.mark.parametrize("q,c,w", [(37, 333, 14), (64, 256, 12), (1, 1, 1), (5, 3, 20)])
@@ -191,6 +201,63 @@ def test_dense_qdist_kernels_on_unaligned_views(gen, q, c, d):
             assert fn.launches == before + 1, name
             torch.testing.assert_close(got, want, rtol=DIST_RTOL, atol=DIST_ATOL,
                                        msg=f"{name} offsets {views}")
+
+
+def _window_case(gen, q, s, window, d, n, word_offset):
+    """Queries, centroids, codes (at ``word_offset`` words into a buffer)
+    and starts with neighbouring windows overlapping, every query with a
+    window at 0 and one at n - window."""
+    w = -(-d // 8)
+    queries = torch.randn(q, d, generator=gen, device="cuda")
+    cent = torch.sort(torch.randn(d, 16, generator=gen, device="cuda"), dim=1).values
+    codes = _words(gen, n, w)  # padding nibbles too: both versions skip them
+    if word_offset:
+        codes = _offset_view(codes, word_offset)
+    centre = torch.randint(0, n, (q, 1), generator=gen, device="cuda")
+    spread = torch.randint(-3 * s, 3 * s + 1, (q, s), generator=gen, device="cuda")
+    starts = (centre + spread).clamp(0, n - window)
+    starts[:, 0] = 0
+    starts[:, -1] = n - window
+    return queries, cent, codes, starts.to(torch.int32).contiguous()
+
+
+@pytest.mark.parametrize("q,s,window,d,n,word_offset", [
+    (64, 384, 5, 384, 5000, 0),   # the engine's pool, 1920 a query
+    (33, 111, 3, 384, 700, 1),    # codes at an odd word offset: 4-byte copies
+    (17, 300, 1, 384, 2000, 0),   # L = 1
+    (9, 53, 5, 61, 400, 0),       # ragged last word, 265 candidates
+    (5, 7, 5, 100, 50, 0),        # W = 13: 4-byte copies; 35 candidates
+    (3, 1, 1, 8, 1, 0),           # one row
+])
+def test_qdist_windows_rows_kernel_within_contract(gen, q, s, window, d, n, word_offset):
+    """Windows read from the resident codes against the plain version
+    (gather, then qdist_windows_ref); both wrappers bit-equal on the same
+    rows; one launch counted per call."""
+    queries, cent, codes, starts = _window_case(gen, q, s, window, d, n, word_offset)
+    before = qdist_windows.launches
+    got = qdist_windows_rows(queries, codes, starts, window, cent)
+    torch.cuda.synchronize()
+    assert qdist_windows.launches == before + 1
+    assert got.shape == (q, s * window)
+    torch.testing.assert_close(
+        got, qdist_windows_rows_ref(queries, codes, starts, window, cent),
+        rtol=DIST_RTOL, atol=DIST_ATOL)
+    gathered = window_rows(codes, starts, window).reshape(q, s * window, -1).contiguous()
+    pre = qdist_windows(queries, gathered, cent)
+    torch.cuda.synchronize()
+    assert qdist_windows.launches == before + 2
+    assert torch.equal(pre, got)
+
+
+def test_qdist_windows_rows_reads_nan_outside_the_rows(gen):
+    queries, cent, codes, starts = _window_case(gen, 4, 10, 5, 64, 100, 0)
+    starts[1, 3] = 96  # rows 96..100: the last one is past the end
+    starts[2, 0] = -1
+    got = qdist_windows_rows(queries, codes, starts, 5, cent)
+    torch.cuda.synchronize()
+    nan = torch.zeros_like(got, dtype=torch.bool)
+    nan[1, 19] = nan[2, 0] = True
+    assert torch.equal(torch.isnan(got), nan)
 
 
 def test_wrappers_reject_mixed_devices(gen):

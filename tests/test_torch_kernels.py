@@ -31,7 +31,8 @@ from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
 from repro_torch.kernels.hamming import (hamming_matrix, hamming_matrix_ref,
                                          hamming_rows, hamming_rows_ref)
 from repro_torch.kernels.qdist import (qdist, qdist_from_packed, qdist_packed_ref,
-                                       qdist_u8_ref, qdist_windows, qdist_windows_ref)
+                                       qdist_u8_ref, qdist_windows, qdist_windows_ref,
+                                       qdist_windows_rows, qdist_windows_rows_ref)
 from test_kernels_integration import DIST_ATOL, DIST_RTOL
 
 
@@ -78,6 +79,102 @@ def test_qdist_windows_ref_matches_jax_kernel_and_oracle(q, c, d):
     before = qdist_windows.launches
     np.testing.assert_array_equal(qdist_windows(tq, tp, tc).numpy(), ref.numpy())
     assert qdist_windows.launches == before
+
+
+@pytest.mark.parametrize("q,s,window,d,n", [(3, 24, 5, 64, 200), (2, 9, 3, 61, 40),
+                                            (4, 17, 1, 384, 90), (1, 3, 5, 8, 5)])
+def test_qdist_windows_rows_ref_matches_jax_kernel_and_oracle(q, s, window, d, n):
+    """Windows read from resident codes: the plain version against the JAX
+    ``qdist_windows_from_packed`` (interpret-mode kernel and oracle) on the
+    same windows gathered with numpy, within the distance contract; starts
+    at 0 and n - window in every query."""
+    rng = np.random.default_rng(q * 1000 + s * 10 + d)
+    w = -(-d // 8)
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    nib = rng.integers(0, 16, size=(n, w * 8), dtype=np.uint32)
+    nib[:, d:] = 0  # pack_codes leaves the padding nibbles zero
+    codes = (nib.reshape(n, w, 8) << (np.arange(8, dtype=np.uint32) * 4)).sum(
+        -1, dtype=np.uint32)
+    starts = rng.integers(0, n - window + 1, size=(q, s)).astype(np.int32)
+    starts[:, 0], starts[:, -1] = 0, n - window
+    cent = np.sort(rng.normal(size=(d, 16)).astype(np.float32), axis=1)
+    windows = codes[starts[:, :, None] + np.arange(window)].reshape(q, s * window, w)
+    tq, tc, ts, tcent = (torch.from_numpy(queries), torch.from_numpy(codes.view(np.int32)),
+                         torch.from_numpy(starts), torch.from_numpy(cent))
+    ref = qdist_windows_rows_ref(tq, tc, ts, window, tcent)
+    assert ref.dtype == torch.float32 and ref.shape == (q, s * window)
+    for use_kernel in (True, False):
+        want = qdist_windows_from_packed(
+            jnp.asarray(queries), jnp.asarray(windows), jnp.asarray(cent), d=d,
+            use_kernel=use_kernel, interpret=True)
+        np.testing.assert_allclose(ref.numpy(), np.asarray(want),
+                                   rtol=DIST_RTOL, atol=DIST_ATOL)
+    before = qdist_windows.launches
+    np.testing.assert_array_equal(qdist_windows_rows(tq, tc, ts, window, tcent).numpy(),
+                                  ref.numpy())
+    np.testing.assert_array_equal(
+        qdist_windows(tq, torch.from_numpy(windows.view(np.int32)), tcent).numpy(),
+        ref.numpy())
+    assert qdist_windows.launches == before  # CPU tensors launch nothing
+
+
+def _bad_rows_args():
+    q = torch.zeros((2, 61), dtype=torch.float32)
+    rows = torch.zeros((9, 8), dtype=torch.int32)
+    st = torch.zeros((2, 3), dtype=torch.int32)
+    cent = torch.zeros((61, 16), dtype=torch.float32)
+    return [
+        (q, rows, st.long(), 2, cent, TypeError),
+        (q, rows.to(torch.int64), st, 2, cent, TypeError),
+        (q, rows[:, :7].contiguous(), st, 2, cent, ValueError),  # W != ceil(D/8)
+        (q, rows, st[:1], 2, cent, ValueError),  # Q mismatch
+        (q, rows, st, 0, cent, ValueError),  # window < 1
+        (q, rows, st, 2.0, cent, ValueError),  # window not an int
+        (q, rows, st.t().contiguous().t(), 2, cent, ValueError),  # strided starts
+        (q, rows, st, 2, cent[:, :8].contiguous(), ValueError),  # not 16 levels
+    ]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_qdist_windows_rows_rejects_bad_arguments(case):
+    q, rows, st, window, cent, err = _bad_rows_args()[case]
+    with pytest.raises(err):
+        qdist_windows_rows(q, rows, st, window, cent)
+
+
+@pytest.mark.parametrize("caller", ["hilbert_keys", "make_sketches", "sketches_from_codes"])
+def test_pack_bits_callers_give_only_zero_and_one(monkeypatch, caller):
+    """The kernel's 16-byte path turns four bytes into four bits by one
+    multiply, which holds only for bytes in {0, 1}: both callers give no
+    other value (the key bits are masked with & 1, the sketches are a bool
+    comparison)."""
+    from repro_torch.core import hilbert, quantize, sketch
+    from repro_torch.kernels import bitpack
+
+    seen = []
+    real = bitpack.pack_bits
+
+    def record(bits, **kw):
+        seen.append(bits.clone())
+        return real(bits, **kw)
+
+    monkeypatch.setattr(bitpack, "pack_bits", record)
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(300, 64)).astype(np.float32))
+    if caller == "hilbert_keys":
+        keys = hilbert.hilbert_keys(x, bits=4, key_bits=200, lo=x.min(0).values,
+                                    hi=x.max(0).values)
+        assert keys.shape == (300, 7)
+    else:
+        quant = quantize.fit(x, bits=4)
+        if caller == "make_sketches":
+            sketch.make_sketches(quant, x)
+        else:
+            sketch.sketches_from_codes(quantize.encode(quant, x))
+    assert seen
+    for bits in seen:
+        assert bits.dtype in (torch.uint8, torch.bool)
+        values = set(torch.unique(bits.view(torch.uint8)).tolist())
+        assert values <= {0, 1} and values == {0, 1}
 
 
 @pytest.mark.parametrize("q,c,w", [(1, 1, 1), (7, 129, 12), (130, 257, 16)])

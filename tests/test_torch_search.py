@@ -170,6 +170,29 @@ def test_stage2_expand_rank_matches_jax_and_packed_path(pair):
         assert torch.equal(pids, tids) and torch.equal(pd, td)
 
 
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_stage2_packed_windows_plain_route_bit_equal_to_expand_rank(pair, use_kernels):
+    """On CPU tensors both routes of ``stage2_packed_windows`` (the gather
+    plus ``qdist_windows_ref``, and ``qdist_windows_rows``, whose plain
+    version is that gather and that distance) give ``stage2_expand_rank``'s
+    ids and distances bit for bit: duplicate positions, overlapping windows,
+    both ends of the master order, padding."""
+    _, tidx, queries = pair
+    rng = np.random.default_rng(5)
+    n = tidx.n_points
+    best_pos = np.sort(rng.integers(0, n, size=(40, 32)), axis=1).astype(np.int32)
+    best_pos[:, :4] = [0, 1, n - 1, -1]
+    best_pos[:, 4] = best_pos[:, 5]  # a duplicate position
+    tcodes = tq.unpack_codes(tidx.codes_master, tidx.dim)
+    tqr, tbp = torch.from_numpy(queries), torch.from_numpy(best_pos)
+    for h, k in ((0, 7), (1, 16), (2, 30), (3, 300)):
+        want = ts.stage2_expand_rank(tqr, tbp, tcodes, tidx.master_order, tidx.quant,
+                                     h=h, k=k)
+        got = ts.stage2_packed_windows(tqr, tbp, tidx.codes_master, tidx.master_order,
+                                       tidx.quant, h=h, k=k, use_kernels=use_kernels)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (h, k)
+
+
 def _tied_candidates(seed, q, c):
     rng = np.random.default_rng(seed)
     # Few ids and few distance values: duplicates and ties everywhere.
