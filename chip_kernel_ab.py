@@ -2,21 +2,24 @@
 """Another version of a CUDA kernel source against the tree's, in turns, on one NVIDIA GPU.
 
 Each argument ``NAME=OTHER.cu`` names a source of ``src/repro_torch/csrc``
-(``pack_bits``, ``qdist_windows`` or ``qdist_dense``) and another version of
-it, for example the parent commit's::
+(``hamming_rows``, ``hamming_matrix``, ``pack_bits``, ``qdist_windows`` or
+``qdist_dense``) and another version of it, for example the parent
+commit's::
 
     git show REV:src/repro_torch/csrc/pack_bits.cu > build/kernel_ab/pack_bits.cu
 
-``qdist_windows=VARIANT`` takes instead a variant of the tree's own
-source, made by text substitutions that must each find their anchor (see
-``VARIANTS``): ``stages2`` / ``stages4`` (ring depth), ``acc8`` (8
-accumulators), ``words4`` / ``words16`` (words a stage), ``no_l2_hint``
-(16-byte copies without ``.L2::128B``), ``pair_table`` (a table of 256
-terms a pair of dims, half the lookups, one block an SM), ``w48`` (W
-fixed at 48 and the stages unrolled; right only for D = 377..384, which
-is all this script runs), and three probes whose distances
-are wrong by design and are not compared: ``no_lookups`` (each lookup
-replaced by adding its address as a float), ``no_copies`` (no copy
+``NAME=VARIANT`` takes instead a variant of the tree's own source, made by
+text substitutions that must each find their anchor (see ``VARIANTS``).
+``hamming_matrix``: ``no_evict_first`` (output stores without the
+evict-first hint) and ``direct_stores`` (fragments stored straight from
+registers, no staging in shared memory).  ``qdist_windows``: ``stages2`` / ``stages4``
+(ring depth), ``acc8`` (8 accumulators), ``words4`` / ``words16`` (words a
+stage), ``no_l2_hint`` (16-byte copies without ``.L2::128B``),
+``pair_table`` (a table of 256 terms a pair of dims, half the lookups, one
+block an SM), ``w48`` (W fixed at 48 and the stages unrolled; right only
+for D = 377..384, which is all this script runs), and three probes whose
+distances are wrong by design and are not compared: ``no_lookups`` (each
+lookup replaced by adding its address as a float), ``no_copies`` (no copy
 issued) and ``neither``.
 
 Every OTHER is compiled with the port's nvcc flags into
@@ -28,6 +31,18 @@ SM clock after each timing.  The launcher's arguments of OTHER are read
 from its source, so a parent whose launcher took other arguments is
 driven as it was.
 
+* ``hamming_rows``: (a) a pre-gathered (Q, K, 12) block at (2048, 48),
+  (2048, 1255), (2048, 2425) (the search's k1 and Table 1's mean k1 of its
+  160- and 120-tree rows) and (65536, 96) (a Task-2 merge chunk), both
+  versions on the same block; (b) the stage-1 step at the same shapes on
+  3,000,000 resident rows, each query's indices near a random point of
+  the table (so neighbouring queries' rows overlap): a parent that takes
+  a pre-gathered block is timed with the gather ``rows[idx]`` before it,
+  the tree's kernel reads the rows by index.  Outputs must be equal.
+* ``hamming_matrix``: the kernel bench's (512, 65536, 12); outputs equal;
+  then ``torch.cdist(p=0)`` on the unpacked {0, 1} float32 bits, without
+  the unpacking, and ``fill_`` of a (512, 65536) int32 tensor, the write
+  floor.
 * ``pack_bits``: random {0,1} bytes at (262144, 448) (one key chunk of the
   curve), (3000000, 384) (the corpus sketches) and (2048, 448) (one query
   chunk's keys); the two outputs must be equal.
@@ -48,7 +63,7 @@ power limit, medians per version and shape, largest differences, clocks
 seen).  Correctness is held elsewhere (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 
-    python3 chip_kernel_ab.py NAME=OTHER.cu|qdist_windows=VARIANT [...]
+    python3 chip_kernel_ab.py NAME=OTHER.cu|NAME=VARIANT [...]
 """
 
 from __future__ import annotations
@@ -63,11 +78,13 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 OUT_DIR = os.path.join(ROOT, "build", "kernel_ab")
-NAMES = ("pack_bits", "qdist_windows", "qdist_dense")
+NAMES = ("hamming_rows", "hamming_matrix", "pack_bits", "qdist_windows", "qdist_dense")
 ORDER = ("other", "tree", "tree", "other")
 ROUNDS = 2
 DIST_RTOL, DIST_ATOL = 1e-5, 1e-6
 
+ROWS_SHAPES = ((2048, 48, 12), (2048, 1255, 12), (2048, 2425, 12), (65536, 96, 12))
+ROWS_TABLE = 3_000_000
 PACK_SHAPES = ((262_144, 448), (3_000_000, 384), (2048, 448))
 WINDOW_SHAPES = ((2048, 1920, 384), (2048, 1675, 384), (2048, 4875, 384))
 STEP_SHAPES = ((2048, 384, 5), (2048, 975, 5))  # (Q, S, L)
@@ -130,7 +147,7 @@ PAIR = (
      "constexpr unsigned kSlabBytes = kWords * 4 * 256 * 4;"),
     ("constexpr int kLutAlign = 256;", "constexpr int kLutAlign = 1024;"),
 )
-VARIANTS = {
+QDIST_VARIANTS = {
     "stages2": ((("kStages = 3;", "kStages = 2;"),), True),
     "stages4": ((("kStages = 3;", "kStages = 4;"),), True),
     "acc8": ((("kAcc = 4;", "kAcc = 8;"),
@@ -149,15 +166,65 @@ VARIANTS = {
     "no_copies": (((COPY, NO_COPY),), False),
     "neither": (((LOOKUP, NO_LOOKUP), (COPY, NO_COPY)), False),
 }
+# The variants of hamming_matrix.cu: name -> (regular expression, the text
+# that replaces its one match).  ``no_evict_first`` stores the output
+# without the evict-first hint; ``direct_stores`` writes each thread's
+# fragments straight from registers, 8 bytes a lane, instead of staging
+# whole rows in shared memory.
+DIRECT_STORES = """  __syncthreads();  // the row popcounts are in
+  // Fragments straight to the output, 8 bytes a lane.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = c0 + wn * 32 + 8 * j + 2 * tq;
+      const int pb0 = pop[col - c0 + kTile], pb1 = pop[col - c0 + kTile + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * 64 + 16 * i + g + 8 * h;
+        if (q0 + row >= n_q) continue;
+        const int v0 = pop[row] + pb0 - 2 * acc[i][j][2 * h];
+        const int v1 = pop[row] + pb1 - 2 * acc[i][j][2 * h + 1];
+        int32_t* dst = out + static_cast<long long>(q0 + row) * n_c + col;
+        if (vec_out && col + 1 < n_c) {
+          *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+        } else {
+          if (col < n_c) dst[0] = v0;
+          if (col + 1 < n_c) dst[1] = v1;
+        }
+      }
+    }
+  }
+}
+
+// Ask once per instantiation"""
+HAMMING_MATRIX_VARIANTS = {
+    "no_evict_first": ((r"__stcs\(reinterpret_cast<int4\*>\(dst\), v\);",
+                        "*reinterpret_cast<int4*>(dst) = v;"),),
+    "direct_stores": ((r"  __syncthreads\(\);\n#pragma unroll\n  for \(int i = 0; i < 4; \+\+i\) \{.*?"
+                       r"\n}\n\n// Ask once per instantiation", DIRECT_STORES),),
+}
 
 
-def variant_source(name: str, source: str) -> str:
-    for old, new in VARIANTS[name][0]:
+def variant_source(name: str, variant: str, source: str) -> str:
+    if name == "hamming_matrix":
+        for pattern, new in HAMMING_MATRIX_VARIANTS[variant]:
+            source, n = re.subn(pattern, lambda _: new, source, flags=re.DOTALL)
+            if n != 1:
+                raise RuntimeError(f"variant {variant}: anchor not found in "
+                                   f"hamming_matrix.cu: {pattern[:60]!r}")
+        return source
+    for old, new in QDIST_VARIANTS[variant][0]:
         if old not in source:
-            raise RuntimeError(f"variant {name}: anchor not found in qdist_windows.cu: "
+            raise RuntimeError(f"variant {variant}: anchor not found in qdist_windows.cu: "
                                f"{old[:60]!r}")
         source = source.replace(old, new)
     return source
+
+
+def is_variant(name: str, other: str) -> bool:
+    return other in {"qdist_windows": QDIST_VARIANTS,
+                     "hamming_matrix": HAMMING_MATRIX_VARIANTS}.get(name, {})
 
 
 def build_others(paths) -> list:
@@ -187,6 +254,92 @@ def launcher_args(source: str, name: str) -> str:
 def check_err(what: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: cudaError_t {err}")
+
+
+def hamming_rows_cases(torch, libs, sources, compare):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    indexed = {v: "idx" in launcher_args(src, "hamming_rows_launch")
+               for v, src in sources.items()}
+
+    def launch(version, q, rows, idx):
+        """``idx`` None: ``rows`` is the pre-gathered (Q, K, W) block."""
+        qn, w = q.shape
+        k = rows.shape[1] if idx is None else idx.shape[1]
+        out = torch.empty((qn, k), dtype=torch.int32, device="cuda")
+        lib = libs[version]
+        if indexed[version]:
+            err = lib.hamming_rows_launch(
+                p(q), p(rows), None if idx is None else p(idx),
+                0 if idx is None else idx.element_size(), p(out), qn, k, w,
+                ctypes.c_longlong(rows.shape[0]), stream)
+        else:
+            if idx is not None:
+                rows = rows[idx]
+            err = lib.hamming_rows_launch(p(q), p(rows), p(out), qn, k, w, stream)
+        check_err("hamming_rows_launch", err)
+        return out
+
+    def words(*shape):
+        return torch.randint(-(2**31), 2**31, shape, generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    for qn, k, w in ROWS_SHAPES:
+        q, block = words(qn, w), words(qn, k, w)
+        a, b = launch("other", q, block, None), launch("tree", q, block, None)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"hamming_rows: the versions differ at {(qn, k, w)}")
+        yield (f"hamming_rows pre-gathered {[qn, k, w]}",
+               {v: (lambda v=v: launch(v, q, block, None)) for v in libs}, 0.0)
+        del block, a, b
+        torch.cuda.empty_cache()
+    table = words(ROWS_TABLE, 12)
+    for qn, k, w in ROWS_SHAPES:
+        q = words(qn, w)
+        centre = torch.randint(0, ROWS_TABLE, (qn, 1), generator=g, device="cuda")
+        spread = torch.randint(-4 * k, 4 * k + 1, (qn, k), generator=g, device="cuda")
+        idx = (centre + spread).clamp(0, ROWS_TABLE - 1).to(torch.int32)
+        a, b = launch("other", q, table, idx), launch("tree", q, table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"hamming_rows: the versions differ at {(qn, k, w)}")
+        yield (f"hamming_rows stage-1 step {[qn, k, w]}",
+               {v: (lambda v=v: launch(v, q, table, idx)) for v in libs}, 0.0)
+        del a, b
+        torch.cuda.empty_cache()
+
+
+def hamming_matrix_cases(torch, libs, sources, compare):
+    from repro_torch.benchmarks import kernel_bench
+
+    x = kernel_bench.inputs("cuda")
+    a, b = x["a"], x["b"]
+    del x
+    (qn, w), c = a.shape, b.shape[0]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+
+    def launch(version):
+        out = torch.empty((qn, c), dtype=torch.int32, device="cuda")
+        check_err("hamming_matrix_launch", libs[version].hamming_matrix_launch(
+            p(a), p(b), p(out), qn, c, w, stream))
+        return out
+
+    x, y = launch("other"), launch("tree")
+    torch.cuda.synchronize()
+    if not torch.equal(x, y):
+        raise AssertionError("hamming_matrix: the versions differ")
+    del x, y
+    yield (f"hamming_matrix {[qn, c, w]}", {v: (lambda v=v: launch(v)) for v in libs}, 0.0)
+    a_bits, b_bits = kernel_bench.sketch_bits(a), kernel_bench.sketch_bits(b)
+    yield ("hamming_matrix torch.cdist(p=0) on the unpacked bits",
+           {"library": lambda: torch.cdist(a_bits, b_bits, p=0)}, None)
+    del a_bits, b_bits
+    out = torch.empty((qn, c), dtype=torch.int32, device="cuda")
+    yield ("hamming_matrix write floor: fill_ of the (Q, C) int32 output",
+           {"library": lambda: out.fill_(7)}, None)
 
 
 def pack_bits_cases(torch, libs, sources, compare):
@@ -305,18 +458,19 @@ def qdist_dense_cases(torch, libs, sources, compare):
            None)
 
 
-CASES = {"pack_bits": pack_bits_cases, "qdist_windows": qdist_windows_cases,
+CASES = {"hamming_rows": hamming_rows_cases, "hamming_matrix": hamming_matrix_cases,
+         "pack_bits": pack_bits_cases, "qdist_windows": qdist_windows_cases,
          "qdist_dense": qdist_dense_cases}
 
 
 def parse(arg: str):
-    """``NAME=OTHER.cu`` or ``qdist_windows=VARIANT`` -> (name, other, label)."""
+    """``NAME=OTHER.cu`` or ``NAME=VARIANT`` -> (name, other, label)."""
     name, sep, other = arg.partition("=")
-    if not sep or name not in NAMES or not (other.endswith(".cu") or (
-            name == "qdist_windows" and other in VARIANTS)):
-        raise SystemExit(f"chip_kernel_ab: expected NAME=OTHER.cu with NAME in {NAMES} "
-                         f"or qdist_windows=VARIANT with VARIANT in {tuple(VARIANTS)}, "
-                         f"got {arg!r}")
+    if not sep or name not in NAMES or not (other.endswith(".cu") or is_variant(name, other)):
+        raise SystemExit(f"chip_kernel_ab: expected NAME=OTHER.cu with NAME in {NAMES}, "
+                         f"hamming_matrix=VARIANT with VARIANT in "
+                         f"{tuple(HAMMING_MATRIX_VARIANTS)} or qdist_windows=VARIANT with "
+                         f"VARIANT in {tuple(QDIST_VARIANTS)}, got {arg!r}")
     return name, other, os.path.basename(other)
 
 
@@ -344,8 +498,9 @@ def main(argv=None) -> int:
     sources, paths = [], []
     for name, other, _ in entries:
         tree = (_build.CSRC / f"{name}.cu").read_text()
-        if other in VARIANTS:
-            source, path = variant_source(other, tree), os.path.join(OUT_DIR, f"{other}.cu")
+        if is_variant(name, other):
+            source = variant_source(name, other, tree)
+            path = os.path.join(OUT_DIR, f"{name}-{other}.cu")
             with open(path, "w") as f:
                 f.write(source)
         else:
@@ -367,7 +522,8 @@ def main(argv=None) -> int:
     for (name, other, label), source, lib in zip(entries, sources, others):
         ptxas_lines(f"tree {name}", _build.build_log(name))
         libs = {"other": lib, "tree": _build.library(name)}
-        compare = VARIANTS[other][1] if other in VARIANTS else True
+        compare = QDIST_VARIANTS[other][1] if name == "qdist_windows" and is_variant(
+            name, other) else True
         for case, fns, diff in CASES[name](torch, libs, source, compare):
             if diff is not None:
                 diffs[f"{case} ({label})"] = diff

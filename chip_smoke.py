@@ -12,7 +12,13 @@ equal those on the CPU, then drives the paths at full width on
 * Task 1: ``HilbertIndex.build`` with the README quickstart configuration
   and ``.search`` of 8192 queries; recall@30 against exact ground truth,
   the kernel route against the plain route, save -> load -> search.
-  Between the build and the search, phase ``stage2_step`` holds
+  Between the build and the search, phase ``stage1_step`` holds
+  ``hamming_rows_indexed`` on master positions of one tree's real
+  candidates (k1 of the search and of Table 1's mean rows) and on one
+  Task-2 merge chunk, and times stage 1's Hamming step both ways: gather
+  the candidates' sketches, then the pre-gathered launch, against the
+  launch that reads them from the resident table; then phase
+  ``stage2_step`` holds
   ``qdist_windows_rows`` on starts from real stage-1 results of the index
   (the engine's pool and Table 1's 120-tree mean pool) and times stage 2's
   distance step both ways: gather the windows, then the pre-gathered
@@ -165,6 +171,12 @@ TABLE1_QDIST_SHAPES = ((2048, 1675, 384), (2048, 4875, 384))
 # Table 1's 120-tree mean pool (2425, 975), h 2, one query chunk of 2048.
 STAGE2_STEPS = ((48, 384), (2425, 975))
 STAGE2_H = 2
+# Stage 1's Hamming step (phase stage1_step) on candidates of the Task-1
+# index: one tree's master positions for one query chunk at the search's
+# k1 and Table 1's mean k1 of its 160- and 120-tree rows; and one Task-2
+# merge chunk at gooaq.TABLE2[0]'s k1.
+STAGE1_K1 = (48, 1255, 2425)
+TASK2_K1 = 96
 
 
 def kernel_fns():
@@ -241,11 +253,12 @@ def phase_kernel_parity(torch, reps: int):
     ragged one; returns the table rows of kernels 1-3 (times included)
     and the largest errors of kernels 4-6."""
     from repro_torch.benchmarks import kernel_bench
-    from repro_torch.benchmarks.kernel_bench import bound, median_ms
+    from repro_torch.benchmarks.kernel_bench import bound, median_ms, sketch_bits
     from repro_torch.core.quantize import pack_codes
     from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
     from repro_torch.kernels.hamming import (hamming_matrix, hamming_matrix_ref,
-                                             hamming_rows, hamming_rows_ref)
+                                             hamming_rows, hamming_rows_indexed,
+                                             hamming_rows_indexed_ref, hamming_rows_ref)
     from repro_torch.kernels.qdist import (qdist, qdist_from_packed,
                                            qdist_packed_ref, qdist_u8_ref,
                                            qdist_windows, qdist_windows_ref,
@@ -287,18 +300,54 @@ def phase_kernel_parity(torch, reps: int):
         ham_times[(qn, k, w)] = {"ms": median_ms(lambda: hamming_rows(a, c), reps),
                                  "bound_ms": b_ms, "bound_by": b_by}
         del a, c
+    # hamming_rows_indexed (the same kernel reading rows by index): rows 0
+    # and n - 1, repeated rows and indices outside [0, n) (clamped) in
+    # every query; int32 and int64 indices; a table 4 bytes off 16 (the
+    # 4-byte loads); bit-equal to the plain version and to the
+    # pre-gathered launch on the same rows.
+    indexed = []
+    for qn, k, w, n, dtype, offset in ((2048, 48, 12, 300_000, torch.int32, 0),
+                                       (37, 33, 12, 5000, torch.int64, 1),
+                                       (129, 7, 14, 300, torch.int32, 0)):
+        a = words(qn, w)
+        buf = words(n * w + offset)
+        table = buf[offset:].view(n, w)
+        idx = torch.randint(0, n, (qn, k), generator=g, device=dev, dtype=dtype)
+        idx[:, 0], idx[:, -1] = 0, n - 1
+        idx[:, 1] = idx[:, 2]
+        idx[0, 1], idx[-1, 2] = -5, n + 7
+        got = hamming_rows_indexed(a, table, idx)
+        ref = hamming_rows_indexed_ref(a, table, idx)
+        pre = hamming_rows(a, table[idx.clamp(0, n - 1)])
+        torch.cuda.synchronize()
+        if not (torch.equal(got, ref) and torch.equal(got, pre)):
+            raise AssertionError(f"hamming_rows_indexed != plain version or pre-gathered "
+                                 f"launch at {(qn, k, w)}, offset {offset}")
+        indexed.append([qn, k, w, n, str(dtype), offset])
+        del a, buf, table, idx, got, ref, pre
+    # Library: torch.cdist(p=0) on the unpacked bits, batched (Q, 1, 32 W)
+    # against (Q, K, 32 W), leaving out the unpacking; held equal.
+    qn, k, w = 2048, 48, 12
+    a, c = words(qn, w), words(qn, k, w)
+    a_bits, c_bits = sketch_bits(a)[:, None, :], sketch_bits(c)
+    if not torch.equal(torch.cdist(a_bits, c_bits, p=0)[:, 0].to(torch.int32),
+                       hamming_rows(a, c)):
+        raise AssertionError("torch.cdist(p=0) computes another function than hamming_rows")
+    ham_times[(qn, k, w)]["library_ms"] = median_ms(
+        lambda: torch.cdist(a_bits, c_bits, p=0), reps)
+    del a, c, a_bits, c_bits
     search_t, merge_t = ham_times[(2048, 48, 12)], ham_times[(MERGE_CHUNK, 96, 12)]
     rows.append({
         "name": "hamming_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/hamming_rows.cu",
         "replaces": "src/repro/kernels/hamming/kernel.py:83",
-        "max_abs_err": max(ham.values()), **search_t,
-        "library_ms": None, "shape": [2048, 48, 12],
-        "task2_shape": [MERGE_CHUNK, 96, 12],
+        "max_abs_err": max(ham.values()), **search_t, "shape": [2048, 48, 12],
+        "ms_route": "pre-gathered", "task2_shape": [MERGE_CHUNK, 96, 12],
         **{"task2_" + x: merge_t[x] for x in ("ms", "plain_ms", "bound_ms")},
     })
     emit({"phase": "kernel_parity", "kernel": "hamming_rows", "exact": True,
-          "shapes": [list(s) for s in ham],
+          "shapes": [list(s) for s in ham], "indexed_cases": indexed,
+          "indexed_bit_equal_to_pre_gathered": True,
           "times": {str(list(s)): t for s, t in ham_times.items()}})
 
     # --- qdist_windows: rtol 1e-5, atol 1e-6 ------------------------------
@@ -347,7 +396,7 @@ def phase_kernel_parity(torch, reps: int):
         "replaces": "src/repro/kernels/qdist/kernel.py:179",
         "max_abs_err": max(err, *rows_errs.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": [qn, c, d],
+        "library_ms": None, "shape": [qn, c, d], "ms_route": "pre-gathered",
     })
     # Table 1's stage 2 at the mean pool (2h + 1) k2 of its 160- and 120-tree
     # rows: timed only (the plain version would hold 15 GB at once).
@@ -425,18 +474,23 @@ def phase_kernel_parity(torch, reps: int):
           "unaligned": unaligned})
 
     # --- hamming_matrix: exact; qdist, qdist_from_packed: rtol 1e-5, atol 1e-6
-    # At the kernel bench's shapes and one ragged shape each, and the ADC
-    # kernels also at a ragged shape of many 128 x 128 tiles whose rows are
-    # not 16-byte aligned; their times are phase kernel_bench's.
-    for qn, c, w in (kernel_bench.HAMMING_SHAPE, (37, 333, 14)):
+    # At the kernel bench's shapes and one ragged shape each, hamming_matrix
+    # also past a 128 x 128 tile edge at W = 17 (4-byte copies, scalar
+    # stores) and on views 1 and 3 words off 16 bytes; the ADC kernels also
+    # at a ragged shape of many 128 x 128 tiles whose rows are not 16-byte
+    # aligned; their times are phase kernel_bench's.
+    ham_shapes = (kernel_bench.HAMMING_SHAPE, (37, 333, 14), (129, 1027, 17), (257, 4096, 12))
+    for qn, c, w in ham_shapes:
         a, b = words(qn, w), words(c, w)
+        if qn == 257:
+            a, b = words(qn * w + 1)[1:].view(qn, w), words(c * w + 3)[3:].view(c, w)
         got, ref = hamming_matrix(a, b), hamming_matrix_ref(a, b)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"hamming_matrix != plain version at {(qn, c, w)}")
         del a, b, got, ref
     emit({"phase": "kernel_parity", "kernel": "hamming_matrix", "exact": True,
-          "shapes": [list(kernel_bench.HAMMING_SHAPE), [37, 333, 14]]})
+          "shapes": [list(x) for x in ham_shapes], "unaligned_view_shape": [257, 4096, 12]})
     dense_errs = {"hamming_matrix": 0.0, "qdist": {}, "qdist_from_packed": {}}
     for qn, c, d in (kernel_bench.QDIST_SHAPE, (37, 333, 61), (300, 20000, 385)):
         q = torch.randn(qn, d, generator=g, device=dev)
@@ -850,6 +904,65 @@ def phase_stage2_step(torch, index, queries, reps: int) -> dict:
         del best_pos, starts, got, pre
     torch.cuda.empty_cache()
     emit({"phase": "stage2_step", "queries": qn, "h": STAGE2_H,
+          "fused_bit_equal_to_pre_gathered": True, "steps": steps})
+    return steps
+
+
+def phase_stage1_step(torch, index, queries, reps: int) -> dict:
+    """Stage 1's Hamming step on candidates of the Task-1 index: tree 0's
+    master positions for TABLE1_QUERIES queries at each of STAGE1_K1, and
+    the first MERGE_CHUNK rows of a Task-2 merge over tree 0's Hilbert
+    order (ids at rank offsets of +-TASK2_K1/2, as ``merge_order`` makes
+    them).  hamming_rows_indexed bit-equal to gathering the rows and the
+    pre-gathered launch; the step timed both ways, with the fused bound by
+    the distinct rows the indices name (two 32-byte sectors a 48-byte row).
+    Its launches are not a path's: the counts are reset after it."""
+    from repro_torch.benchmarks.kernel_bench import bound, median_ms
+    from repro_torch.core import forest as forest_lib
+    from repro_torch.core import sketch
+    from repro_torch.kernels.hamming import hamming_rows, hamming_rows_indexed
+
+    q = queries[:TABLE1_QUERIES].contiguous()
+    f, fcfg = index.forest, index.config.forest
+    n, table = index.n_points, index.sketches_master
+    w = table.shape[1]
+    cases = []
+    qsk = sketch.make_sketches(index.quant, q)
+    for k1 in STAGE1_K1:
+        cand = forest_lib.tree_candidates(
+            q, f.orders[0], f.directories[0], f.lo, f.hi, f.perms[0], f.flips[0],
+            bits=fcfg.bits, key_bits=fcfg.key_bits, leaf_size=fcfg.leaf_size, k1=k1)
+        cases.append((f"task1 k1 {k1}", qsk, table, index.master_rank[cand]))
+    by_id = table[index.master_rank.long()]  # point id -> sketch
+    order = f.orders[0]
+    rank = torch.empty_like(order)
+    rank.scatter_(0, order.long(), torch.arange(n, dtype=order.dtype, device=order.device))
+    half = TASK2_K1 // 2
+    deltas = torch.cat([torch.arange(-half, 0), torch.arange(1, TASK2_K1 - half + 1)]
+                       ).to(dtype=torch.int32, device=order.device)
+    pos = (rank[:MERGE_CHUNK, None] + deltas).clamp_(0, n - 1)
+    cases.append((f"task2 merge chunk k1 {TASK2_K1}", by_id[:MERGE_CHUNK].contiguous(),
+                  by_id, order[pos.long()]))
+    steps = {}
+    for name, qs, tab, idx in cases:
+        qn, k = idx.shape
+        got, pre = hamming_rows_indexed(qs, tab, idx), hamming_rows(qs, tab[idx])
+        torch.cuda.synchronize()
+        if not torch.equal(got, pre):
+            raise AssertionError(f"stage1_step: fused != pre-gathered at {name}")
+        rows_read = torch.unique(idx).numel()
+        sectors = -(-(w * 4) // 32)
+        b_ms, b_by = bound(rows_read * sectors * 32 + idx.numel() * idx.element_size()
+                           + qs.numel() * 4 + qn * k * 4, 3 * qn * k * w)
+        steps[name] = {
+            "shape": [qn, k, w], "rows_read": rows_read, "candidate_rows": qn * k,
+            "gather_then_launch_ms": median_ms(lambda: hamming_rows(qs, tab[idx]), reps),
+            "fused_ms": median_ms(lambda: hamming_rows_indexed(qs, tab, idx), reps),
+            "fused_bound_ms": b_ms, "fused_bound_by": b_by}
+        del got, pre
+    del cases, by_id, rank, pos
+    torch.cuda.empty_cache()
+    emit({"phase": "stage1_step", "table_rows": n,
           "fused_bit_equal_to_pre_gathered": True, "steps": steps})
     return steps
 
@@ -1766,12 +1879,22 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_device_parity(torch, cfg, lsm_cfg, PARITY_ROWS, args.seed)
     points, queries = phase_data(torch, args.n, args.queries, args.seed)
-    step = {}
+    steps = {}
+
+    def after_build(index):
+        steps["stage1_step"] = phase_stage1_step(torch, index, queries, KERNEL_REPS)
+        steps["stage2_step"] = phase_stage2_step(torch, index, queries, KERNEL_REPS)
+
     main_launches, truth = phase_main_path(
-        torch, cfg, params, points, queries, args.recall_floor,
-        after_build=lambda index: step.update(
-            phase_stage2_step(torch, index, queries, KERNEL_REPS)))
-    next(r for r in kernels if r["name"] == "qdist_windows")["stage2_step"] = step
+        torch, cfg, params, points, queries, args.recall_floor, after_build=after_build)
+    # Beside each row's pre-gathered time, the fused launch the paths make,
+    # at the search's shape (the first step of each phase).
+    for name, step in (("hamming_rows", "stage1_step"), ("qdist_windows", "stage2_step")):
+        row = next(r for r in kernels if r["name"] == name)
+        first = next(iter(steps[step].values()))
+        row.update({step: steps[step], "fused_ms": first["fused_ms"],
+                    "fused_bound_ms": first["fused_bound_ms"],
+                    "fused_bound_by": first["fused_bound_by"]})
     launches.update(main_launches)
     torch.cuda.empty_cache()
     launches.update(phase_table1(torch, points, queries, truth))

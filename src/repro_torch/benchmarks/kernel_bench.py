@@ -13,9 +13,12 @@ of non-tensor fp32, whichever is longer; the bytes each input read once
 and the output written once), the plain version's time, and the kernel
 held to its plain version at the same shape (the counterpart of the JAX
 module's interpret-mode spot check): Hamming exactly, distances within
-rtol 1e-5 / atol 1e-6.  The two distance rows also time ``torch.cdist`` on
-the dequantized fp32 rows, squared, with TF32 off: a yardstick that
-leaves out the dequantization, used nowhere in the port.  On the CPU
+rtol 1e-5 / atol 1e-6.  Each row also times one PyTorch call that
+computes the same function, a yardstick used nowhere in the port: for
+Hamming ``torch.cdist(p=0)`` on the sketches unpacked to {0, 1} float32
+bits (held equal to the kernel), leaving out the unpacking; for the two
+distance rows ``torch.cdist`` on the dequantized fp32 rows, squared,
+with TF32 off, leaving out the dequantization.  On the CPU
 (``device="cpu"``) the wrappers take their plain versions and no time is
 measured.
 
@@ -35,7 +38,8 @@ from repro_torch.kernels.hamming import hamming_matrix, hamming_matrix_ref
 from repro_torch.kernels.qdist import (qdist, qdist_from_packed, qdist_packed_ref,
                                        qdist_u8_ref)
 
-__all__ = ["main", "inputs", "bound", "median_ms", "HBM_BYTES_PER_S", "FP32_OPS_PER_S"]
+__all__ = ["main", "inputs", "bound", "median_ms", "sketch_bits", "HBM_BYTES_PER_S",
+           "FP32_OPS_PER_S"]
 
 # Published peaks of one H100 SXM (dense, at its 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -80,6 +84,13 @@ def median_ms(fn: Callable[[], object], reps: int) -> float:
     return times[len(times) // 2]
 
 
+def sketch_bits(words: torch.Tensor) -> torch.Tensor:
+    """(..., W) int32 words -> (..., 32 W) float32 {0, 1}: the bits that
+    ``torch.cdist(p=0)`` counts the differences of."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[..., None] >> shifts) & 1).flatten(-2).float()
+
+
 def inputs(dev, hamming_shape=HAMMING_SHAPE, qdist_shape=QDIST_SHAPE
            ) -> Dict[str, torch.Tensor]:
     """The bench's inputs on ``dev``, drawn from numpy seed 0 in this order:
@@ -120,6 +131,8 @@ def _row(name: str, kernel: Callable, plain: Callable, n_bytes: int, n_ops: int,
         row["device_ms"] = median_ms(kernel, REPS)
         row["plain_ms"] = median_ms(plain, REPS // 4)
         if library is not None:
+            if exact and not torch.equal(library().to(torch.int32), kernel()):
+                raise AssertionError(f"{name}: the library call computes another function")
             row["library_ms"] = median_ms(library, REPS)
     return row
 
@@ -141,11 +154,13 @@ def main(device: str = "cuda", *, hamming_shape=HAMMING_SHAPE,
 
     q, c, w = hamming_shape
     a, b = x.pop("a"), x.pop("b")
+    a_bits, b_bits = sketch_bits(a), sketch_bits(b)
     rows.append(_row(
         f"hamming_{q}x{c}x{32 * w}b", lambda: hamming_matrix(a, b),
         lambda: hamming_matrix_ref(a, b), (q * w + c * w + q * c) * 4, 3 * q * c * w,
-        exact=True, on_card=on_card))
-    del a, b
+        exact=True, on_card=on_card,
+        library=lambda: torch.cdist(a_bits, b_bits, p=0)))
+    del a, b, a_bits, b_bits
 
     cq, cc, d = qdist_shape
     queries, codes, packed = x["queries"], x["codes"], x["packed"]
@@ -177,8 +192,9 @@ def main(device: str = "cuda", *, hamming_shape=HAMMING_SHAPE,
         print(",".join(str(row[k]) if row[k] is not None
                        else "none" if on_card and k == "library_ms"
                        else "not measured" for k in COLUMNS))
-    print("library_ms: torch.cdist(queries, dequantized rows) ** 2, fp32 without "
-          "TF32; leaves out the dequantization; no library call computes hamming")
+    print("library_ms: hamming: torch.cdist(p=0) on the unpacked {0,1} float32 bits, "
+          "leaving out the unpacking; qdist: torch.cdist(queries, dequantized rows) "
+          "** 2, fp32 without TF32, leaving out the dequantization")
     print("kernel_vs_plain_check,ok")
     return rows
 

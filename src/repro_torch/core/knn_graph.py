@@ -27,7 +27,7 @@ import torch
 from repro_torch.core import hilbert
 from repro_torch.core.search import _merge_topk_dedup, _topk_smallest
 from repro_torch.core.types import GraphParams
-from repro_torch.kernels.hamming import hamming_rows
+from repro_torch.kernels.hamming import hamming_rows_indexed
 
 __all__ = [
     "order_and_rank",
@@ -57,7 +57,8 @@ def merge_order(best_id, best_dist, order, rank, sketches, *, k1, k2,
     """Merge one Hilbert order's rank-window candidates into the top-k2.
 
     Offsets are ±k1/2 with 0 left out, positions clipped to [0, n-1]; the
-    point's own sketch is the Hamming "query" of ``hamming_rows`` and self
+    point's own sketch is the Hamming "query" of ``hamming_rows_indexed``,
+    which reads the candidates' sketches from ``sketches`` by id, and self
     matches are masked to 2**30.  Returns new (n, k2) ids and distances.
     """
     n = order.shape[0]
@@ -71,7 +72,7 @@ def merge_order(best_id, best_dist, order, rank, sketches, *, k1, k2,
         e = min(n, s + chunk)
         pos = (rank[s:e, None] + deltas[None, :]).clamp_(0, n - 1)
         cand = order[pos.long()]  # (m, k1) ids
-        hd = hamming_rows(sketches[s:e], sketches[cand.long()])
+        hd = hamming_rows_indexed(sketches[s:e], sketches, cand)
         rows = torch.arange(s, e, dtype=torch.int32, device=dev)
         hd = torch.where(cand == rows[:, None], _INF, hd)
         out_id[s:e], out_dist[s:e] = _merge_topk_dedup(

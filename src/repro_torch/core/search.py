@@ -25,7 +25,7 @@ from repro_torch.core import forest as forest_lib
 from repro_torch.core import hilbert, quantize, sketch
 from repro_torch.core.quantize import Quantizer
 from repro_torch.core.types import ForestConfig
-from repro_torch.kernels.hamming import hamming_rows, hamming_rows_ref
+from repro_torch.kernels.hamming import hamming_rows_indexed, hamming_rows_indexed_ref
 from repro_torch.kernels.qdist import qdist_windows_rows, qdist_windows_rows_ref
 from repro_torch.kernels.qdist import window_rows as _window_slices
 
@@ -119,14 +119,19 @@ def stage1_tree_merge(
     k2,
     use_kernels=False,
 ):
-    """One tree's stage-1: candidates → Hamming filter → merge into top-k2."""
+    """One tree's stage-1: candidates → Hamming filter → merge into top-k2.
+
+    With ``use_kernels`` the kernel reads each candidate's sketch from
+    ``sketches_master`` by its master position, so no (Q, k1, Ws) block is
+    built; the plain route gathers it.
+    """
     cand_ids = forest_lib.tree_candidates(
         queries, order, directory, lo, hi, perm, flip,
         bits=bits, key_bits=key_bits, leaf_size=leaf_size, k1=k1,
     )  # (Q, k1)
     mpos = master_rank[cand_ids]  # (Q, k1) master positions
-    csk = sketches_master[mpos]  # (Q, k1, Ws)
-    hd = (hamming_rows if use_kernels else hamming_rows_ref)(qsketches, csk)
+    hd = (hamming_rows_indexed if use_kernels else hamming_rows_indexed_ref)(
+        qsketches, sketches_master, mpos)
     return _merge_topk_dedup(best_pos, best_dist, mpos, hd, k2)
 
 

@@ -3,8 +3,12 @@
 ``hamming_rows`` is the counterpart of ``repro.kernels.hamming.hamming_rows``
 (Pallas ``hamming_rows_kernel``), the stage-1 filter: (Q, W) query
 sketches against each query's own (Q, K, W) candidate sketches, 32-bit
-words held in int32, giving (Q, K) int32 distances.  The kernel lives in
-``repro_torch/csrc/hamming_rows.cu``.
+words held in int32, giving (Q, K) int32 distances.
+``hamming_rows_indexed`` computes the same function of the candidates
+that stage 1 reads by index: rows ``idx[q, k]`` of the resident (n, W)
+sketch table, with no (Q, K, W) block built.  One kernel serves both
+(``repro_torch/csrc/hamming_rows.cu``); both wrappers count its launches
+in ``hamming_rows.launches``.
 
 ``hamming_matrix`` is the counterpart of
 ``repro.kernels.hamming.hamming_matrix`` (Pallas ``hamming_matrix_kernel``):
@@ -23,7 +27,8 @@ from repro_torch.core import sketch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import check, count_launch, raise_on_error, same
 
-__all__ = ["hamming_rows", "hamming_rows_ref", "hamming_matrix", "hamming_matrix_ref"]
+__all__ = ["hamming_rows", "hamming_rows_ref", "hamming_rows_indexed",
+           "hamming_rows_indexed_ref", "hamming_matrix", "hamming_matrix_ref"]
 
 # Elements of the (rows, C, W) XOR block one step of hamming_matrix_ref
 # builds: the bench shape (512 x 65536 x 12) would need 1.6 GB at once.
@@ -35,12 +40,39 @@ def hamming_rows_ref(queries: torch.Tensor, candidates: torch.Tensor) -> torch.T
     return sketch.hamming_distance(queries[:, None, :], candidates)
 
 
+def hamming_rows_indexed_ref(queries: torch.Tensor, table: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: gather ``table[idx]`` (indices clamped to
+    ``[0, n - 1]``, as the JAX gather clamps), then :func:`hamming_rows_ref`."""
+    return hamming_rows_ref(queries, table[idx.clamp(0, table.shape[0] - 1)])
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("hamming_rows").hamming_rows_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_rows(queries, rows, idx, k: int):
+    """Allocate (Q, k), launch the rows kernel, count it.
+
+    ``idx`` None is the pre-gathered layout: row ``q * k + j`` of ``rows``.
+    """
+    qn, w = queries.shape
+    out = torch.empty((qn, k), dtype=torch.int32, device=queries.device)
+    if out.numel() == 0:
+        return out
+    err = _launcher()(
+        queries.data_ptr(), rows.data_ptr(), None if idx is None else idx.data_ptr(),
+        0 if idx is None else idx.element_size(), out.data_ptr(), qn, k, w,
+        rows.shape[0], torch.cuda.current_stream(queries.device).cuda_stream,
+    )
+    raise_on_error("hamming_rows", err)
+    count_launch(hamming_rows)
+    return out
 
 
 def hamming_rows(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
@@ -59,16 +91,33 @@ def hamming_rows(queries: torch.Tensor, candidates: torch.Tensor) -> torch.Tenso
     if queries.device.type != "cuda":
         raise ValueError(f"hamming_rows: no kernel for device {queries.device}")
     k = candidates.shape[1]
-    out = torch.empty((qn, k), dtype=torch.int32, device=queries.device)
-    if out.numel() == 0:
-        return out
-    err = _launcher()(
-        queries.data_ptr(), candidates.data_ptr(), out.data_ptr(), qn, k, w,
-        torch.cuda.current_stream(queries.device).cuda_stream,
-    )
-    raise_on_error("hamming_rows", err)
-    count_launch(hamming_rows)
-    return out
+    return _launch_rows(queries, candidates.view(qn * k, w), None, k)
+
+
+def hamming_rows_indexed(queries: torch.Tensor, table: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """(Q, W) int32 words vs rows ``idx`` (Q, K) int32 or int64 of the
+    (n, W) int32 ``table`` -> (Q, K) int32 Hamming.
+
+    An index outside ``[0, n)`` reads row 0 or n - 1 (clamped, as the JAX
+    gather clamps); the search paths never make one.  CPU tensors take
+    :func:`hamming_rows_indexed_ref`; CUDA tensors launch the rows kernel
+    on the current stream (and count it in ``hamming_rows.launches``) or
+    raise.
+    """
+    check("queries", queries, torch.int32, 2)
+    check("table", table, torch.int32, 2, queries.device)
+    wide = isinstance(idx, torch.Tensor) and idx.dtype == torch.int64
+    check("idx", idx, torch.int64 if wide else torch.int32, 2, queries.device)
+    same("table W", table.shape[1:], queries.shape[1:])
+    same("idx Q", idx.shape[:1], queries.shape[:1])
+    if table.shape[0] < 1:
+        raise ValueError("table: at least one row")
+    if queries.device.type == "cpu":
+        return hamming_rows_indexed_ref(queries, table, idx)
+    if queries.device.type != "cuda":
+        raise ValueError(f"hamming_rows_indexed: no kernel for device {queries.device}")
+    return _launch_rows(queries, table, idx, idx.shape[1])
 
 
 hamming_rows.launches = 0

@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
 from repro_torch.kernels.hamming import (hamming_matrix, hamming_matrix_ref,
-                                         hamming_rows, hamming_rows_ref)
+                                         hamming_rows, hamming_rows_indexed,
+                                         hamming_rows_indexed_ref, hamming_rows_ref)
 from repro_torch.kernels.qdist import (qdist, qdist_from_packed, qdist_packed_ref,
                                        qdist_u8_ref, qdist_windows, qdist_windows_ref,
                                        qdist_windows_rows, qdist_windows_rows_ref,
@@ -42,6 +43,43 @@ def test_hamming_rows_kernel_exact(gen, q, k, w):
     torch.cuda.synchronize()
     assert hamming_rows.launches == before + 1
     assert torch.equal(got, hamming_rows_ref(a, c))
+
+
+# Ragged Q and K; W of 1, 12 (16-byte loads), 14 and 17 (4-byte loads);
+# int32 and int64 indices; a table whose base is 4 bytes off 16.
+@pytest.mark.parametrize("q,k,w,n,idx_dtype,table_offset", [
+    (2048, 48, 12, 100_000, torch.int32, 0),  # the search's shape
+    (37, 33, 12, 5000, torch.int64, 0),
+    (129, 7, 12, 300, torch.int32, 1),        # 4-byte loads: base off 16
+    (5, 130, 14, 1000, torch.int32, 0),
+    (3, 1, 17, 50, torch.int64, 3),
+    (1, 1, 1, 1, torch.int32, 0),             # one row
+    (200, 96, 1, 7, torch.int64, 1),          # many repeats of few rows
+])
+def test_hamming_rows_indexed_kernel_exact(gen, q, k, w, n, idx_dtype, table_offset):
+    """Rows read by index from the table against the plain version and
+    against the pre-gathered launch on the same rows; rows 0 and n - 1,
+    repeated rows and indices outside [0, n) (clamped) in every query; one
+    launch counted under ``hamming_rows``."""
+    a, table = _words(gen, q, w), _words(gen, n, w)
+    if table_offset:
+        table = _offset_view(table, table_offset)
+    idx = torch.randint(0, n, (q, k), generator=gen, device="cuda", dtype=idx_dtype)
+    idx[:, 0] = 0
+    idx[:, -1] = n - 1
+    if k > 3:
+        idx[:, 1] = idx[:, 2]
+        idx[0, 1], idx[-1, 2] = -5, n + 7
+    want = hamming_rows_indexed_ref(a, table, idx)
+    before = hamming_rows.launches
+    got = hamming_rows_indexed(a, table, idx)
+    torch.cuda.synchronize()
+    assert hamming_rows.launches == before + 1
+    assert got.shape == (q, k) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    gathered = table[idx.clamp(0, n - 1)].contiguous()
+    assert torch.equal(hamming_rows(a, gathered), got)
+    assert hamming_rows.launches == before + 2
 
 
 @pytest.mark.parametrize("q,c,d", [(2048, 1920, 384), (37, 333, 61), (3, 1025, 8), (2, 5, 1)])
@@ -85,6 +123,50 @@ def test_hamming_matrix_kernel_exact(gen, q, c, w):
     torch.cuda.synchronize()
     assert hamming_matrix.launches == before + 1
     assert torch.equal(got, hamming_matrix_ref(a, b))
+
+
+# Edges of the 128 x 128 tile (Q and C of 1, 127, 128, 129, 333) at W of
+# 1 to 33: one and several 8-word stages, ragged stages, 16-byte copies
+# (W % 4 == 0) and 4-byte ones, C % 4 != 0 (scalar stores).
+@pytest.mark.parametrize("w", [1, 8, 12, 14, 16, 17, 33])
+def test_hamming_matrix_kernel_at_tile_edges(gen, w):
+    for q, c in ((1, 1), (1, 333), (127, 128), (128, 129), (129, 127), (333, 1),
+                 (128, 128), (333, 333)):
+        a, b = _words(gen, q, w), _words(gen, c, w)
+        got = hamming_matrix(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, hamming_matrix_ref(a, b)), (q, c, w)
+
+
+@pytest.mark.parametrize("w", [1, 12, 17])
+def test_hamming_matrix_kernel_on_constant_sketches(gen, w):
+    """All-ones and all-zeros sketches: distances 0 and 32 W exactly, the
+    extremes of popc(a) + popc(b) - 2 popc(a & b); a row against itself 0."""
+    ones = torch.full((129, w), -1, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros((131, w), dtype=torch.int32, device="cuda")
+    both = torch.cat([ones, zeros])
+    got = hamming_matrix(both, both)
+    torch.cuda.synchronize()
+    assert torch.equal(got, hamming_matrix_ref(both, both))
+    assert int(got[:129, :129].max()) == 0 and int(got[129:, 129:].max()) == 0
+    assert int(got[:129, 129:].min()) == 32 * w
+    rows = _words(gen, 140, w)
+    assert torch.equal(torch.diagonal(hamming_matrix(rows, rows)),
+                       torch.zeros(140, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("q,c,w", [(130, 300, 12), (37, 333, 16)])
+def test_hamming_matrix_kernel_on_unaligned_views(gen, q, c, w):
+    """Queries and candidates that are views at odd word offsets (rows whose
+    length would allow 16-byte copies, base pointers that do not)."""
+    a, b = _words(gen, q, w), _words(gen, c, w)
+    want = hamming_matrix_ref(a, b)
+    for qa, cb in ((1, 0), (0, 1), (3, 2)):
+        a_v = _offset_view(a, qa) if qa else a
+        b_v = _offset_view(b, cb) if cb else b
+        got = hamming_matrix(a_v, b_v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (qa, cb)
 
 
 @pytest.mark.parametrize("q,c,d", [(37, 333, 61), (64, 256, 384), (1, 1, 1), (5, 3, 100)])
@@ -264,6 +346,9 @@ def test_wrappers_reject_mixed_devices(gen):
     a = _words(gen, 4, 3)
     with pytest.raises(ValueError):
         hamming_rows(a, a.cpu()[:, None, :].contiguous())
+    with pytest.raises(ValueError):
+        hamming_rows_indexed(a, a.cpu(), torch.zeros((4, 2), dtype=torch.int32,
+                                                     device="cuda"))
     q = torch.zeros((2, 8), device="cuda")
     with pytest.raises(ValueError):
         qdist_windows(q, torch.zeros((2, 3, 1), dtype=torch.int32),

@@ -29,7 +29,8 @@ from repro.kernels.qdist import qdist_windows_from_packed
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitpack import pack_bits, pack_bits_ref
 from repro_torch.kernels.hamming import (hamming_matrix, hamming_matrix_ref,
-                                         hamming_rows, hamming_rows_ref)
+                                         hamming_rows, hamming_rows_indexed,
+                                         hamming_rows_indexed_ref, hamming_rows_ref)
 from repro_torch.kernels.qdist import (qdist, qdist_from_packed, qdist_packed_ref,
                                        qdist_u8_ref, qdist_windows, qdist_windows_ref,
                                        qdist_windows_rows, qdist_windows_rows_ref)
@@ -53,6 +54,36 @@ def test_hamming_rows_ref_matches_jax_kernel_and_oracle(q, k, w):
         np.testing.assert_array_equal(np.asarray(want), ref.numpy())
     before = hamming_rows.launches
     np.testing.assert_array_equal(hamming_rows(ta, tc).numpy(), ref.numpy())
+    assert hamming_rows.launches == before  # CPU tensors launch nothing
+
+
+# W of 1, 12 and 14; int32 and int64 indices; indices outside [0, n)
+# clamped, as jnp.take(..., mode="clip") clamps them.
+@pytest.mark.parametrize("q,k,w,n,idx_dtype,out_of_range", [
+    (1, 4, 1, 9, np.int32, False),
+    (7, 33, 12, 500, np.int64, False),
+    (130, 16, 14, 40, np.int32, True),
+    (37, 48, 12, 3000, np.int64, True),
+])
+def test_hamming_rows_indexed_ref_matches_jax_kernel_and_oracle(q, k, w, n, idx_dtype,
+                                                                out_of_range):
+    rng = np.random.default_rng(q * 1000 + k)
+    a, table = _words(rng, q, w), _words(rng, n, w)
+    idx = rng.integers(0, n, size=(q, k)).astype(idx_dtype)
+    idx[:, 0], idx[:, -1] = 0, n - 1
+    if out_of_range:
+        idx[0, 1], idx[-1, 2], idx[q // 2, 3] = -1, n, -(2**20)
+    ta = torch.from_numpy(a.view(np.int32))
+    tt, ti = torch.from_numpy(table.view(np.int32)), torch.from_numpy(idx)
+    ref = hamming_rows_indexed_ref(ta, tt, ti)
+    assert ref.dtype == torch.int32 and ref.shape == (q, k)
+    gathered = jnp.take(jnp.asarray(table), jnp.asarray(idx), axis=0, mode="clip")
+    for use_kernel in (True, False):
+        want = j_hamming_rows(jnp.asarray(a), gathered, use_kernel=use_kernel,
+                              interpret=True)
+        np.testing.assert_array_equal(np.asarray(want), ref.numpy())
+    before = hamming_rows.launches
+    np.testing.assert_array_equal(hamming_rows_indexed(ta, tt, ti).numpy(), ref.numpy())
     assert hamming_rows.launches == before  # CPU tensors launch nothing
 
 
@@ -304,6 +335,30 @@ def test_hamming_rows_rejects_bad_arguments(case):
     a, c, err = _bad_hamming_args()[case]
     with pytest.raises(err):
         hamming_rows(a, c)
+
+
+def _bad_hamming_indexed_args():
+    a = torch.zeros((4, 3), dtype=torch.int32)
+    t = torch.zeros((9, 3), dtype=torch.int32)
+    i = torch.zeros((4, 5), dtype=torch.int32)
+    return [
+        (a, t, i.to(torch.int16), TypeError),
+        (a, t, i.float(), TypeError),
+        (a, t.to(torch.int64), i, TypeError),
+        (a, t[:, :2].contiguous(), i, ValueError),  # W mismatch
+        (a, t, i[:3], ValueError),  # Q mismatch
+        (a, t, i[:, None, :], ValueError),  # rank
+        (a, t, i.t().contiguous().t(), ValueError),  # strided
+        (a, t[:0], i, ValueError),  # empty table
+        (a, t, i.numpy(), TypeError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_hamming_rows_indexed_rejects_bad_arguments(case):
+    a, t, i, err = _bad_hamming_indexed_args()[case]
+    with pytest.raises(err):
+        hamming_rows_indexed(a, t, i)
 
 
 def _bad_qdist_args():

@@ -74,6 +74,29 @@ def test_every_order_bit_equal_to_jax(pair):
     assert torch.equal(sbi, tbi) and torch.equal(sbd, tbd)
 
 
+def test_merge_order_reads_candidate_sketches_by_id(pair, monkeypatch):
+    """Each merge chunk hands the whole (n, Ws) sketch table and its (m, k1)
+    candidate ids to ``hamming_rows_indexed``: no (m, k1, Ws) block is
+    gathered, and no int64 copy of the ids is made."""
+    _, tidx = pair
+    n = tidx.points.shape[0]
+    tsk = tidx.sketches_master[tidx.master_rank.long()]
+    order, rank = tidx.master_order, tidx.master_rank
+    seen = []
+    real = tkg.hamming_rows_indexed
+
+    def spy(qsk, table, idx):
+        seen.append((table is tsk, tuple(qsk.shape), tuple(idx.shape), idx.dtype))
+        return real(qsk, table, idx)
+
+    monkeypatch.setattr(tkg, "hamming_rows_indexed", spy)
+    best_id = torch.full((n, 32), -1, dtype=torch.int32)
+    best_d = torch.full((n, 32), 2**30, dtype=torch.int32)
+    tkg.merge_order(best_id, best_d, order, rank, tsk, k1=16, k2=32, chunk=1024)
+    assert seen == [(True, (m, tsk.shape[1]), (m, 16), torch.int32)
+                    for m in (1024, 1024, n - 2048)]
+
+
 def test_knn_graph_matches_jax(pair):
     jidx, tidx = pair
     jids, jd = jidx.knn_graph(JGraphParams(**_GRAPH))

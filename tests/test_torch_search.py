@@ -78,6 +78,36 @@ def test_stage1_best_pos_bit_equal_after_every_tree(pair, use_kernels):
         _assert_ids_equal_up_to_distance_ties(jids, tids.numpy(), jd)
 
 
+def test_stage1_reads_candidate_sketches_from_the_resident_table(pair, monkeypatch):
+    """Both routes of stage 1 hand the resident (n, Ws) sketch table and the
+    (Q, k1) master positions to the indexed filter (kernel or plain
+    version): no (Q, k1, Ws) block is built on the kernel route; the two
+    routes are bit-equal."""
+    _, tidx, queries = pair
+    seen = []
+
+    def spy(real):
+        def fn(qsk, table, idx):
+            seen.append((table is tidx.sketches_master, tuple(idx.shape), idx.dtype))
+            return real(qsk, table, idx)
+        return fn
+
+    monkeypatch.setattr(ts, "hamming_rows_indexed", spy(ts.hamming_rows_indexed))
+    monkeypatch.setattr(ts, "hamming_rows_indexed_ref", spy(ts.hamming_rows_indexed_ref))
+    tq = torch.from_numpy(queries)
+    tqsk = tsk.make_sketches(tidx.quant, tq)
+    tf, out = tidx.forest, []
+    for use_kernels in (True, False):
+        bp = torch.full((40, 64), -1, dtype=torch.int32)
+        bd = torch.full((40, 64), 2**30, dtype=torch.int32)
+        out.append(ts.stage1_tree_merge(
+            tq, tqsk, bp, bd, tf.orders[0], tf.directories[0], tf.lo, tf.hi,
+            tf.perms[0], tf.flips[0], tidx.master_rank, tidx.sketches_master,
+            bits=4, key_bits=128, leaf_size=16, k1=16, k2=64, use_kernels=use_kernels))
+    assert seen == [(True, (40, 16), torch.int32)] * 2
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+
+
 def test_fused_search_chunk_matches(pair):
     jidx, tidx, queries = pair
     kw = dict(bits=4, key_bits=128, leaf_size=16, k1=16, k2=64, h=1, k=8)
