@@ -53,11 +53,32 @@ equal those on the CPU, then drives the paths at full width on
 * Task 2: ``HilbertIndex.build`` with the GOOAQ forest and
   ``.knn_graph(gooaq.TABLE2[0])`` (80 orders, k1 96, k2 60, k 15);
   recall@15 of 10,000 sampled rows against exact neighbours.
+* The sharded layout on 4 logical shards of the card: after Table 1,
+  phase ``sharded`` builds ``ShardedHilbertIndex`` with the Task-1
+  configuration and searches the 8192 queries with the tree merge, the
+  gather merge, the pruned tree and unmerged (recall@30 beside the
+  single index's; tree and gather with bit-equal sorted distances, the
+  prune bit-equal to the tree), then phase ``sharded_bundles`` saves,
+  reloads and reshards to one shard a 262,144-row sharded index
+  (bit-equal; the reshard bit-equal to a ``HilbertIndex`` build).  After
+  Task 2, phase ``sharded_task2_parity`` holds
+  ``distributed_knn_graph`` on 4 shards bit-equal to 1 shard on 262,144
+  rows over 4 orders, phase ``sharded_halo_kernel`` holds the halo
+  windows' ``hamming_rows_indexed`` launches at the full graph's shape
+  (4 x 1.5M rows, k1 96) equal to the plain version on the same tables,
+  and phase ``sharded_task2`` runs the graph on all rows with
+  ``gooaq.TABLE2[0]``: overflow 0, recall@15 of Task 2's sampled rows
+  beside the single-device graph's; phase ``sharded_task2_profile`` times
+  one order's stages and profiles it.
 
 Before them, phase ``device_parity_engine`` runs the same engine
 operations on the CPU and on the card at 20,000 rows (step-mode searches,
 writes, a forced maintenance in a thread and in a compactor child on the
-same device): state bit-equal between devices and modes.
+same device): state bit-equal between devices and modes; and phase
+``sharded_device_parity`` builds a 4-shard index on both devices at
+20,000 rows: state bit-equal, each merge and the unmerged search within
+the distance contract, save -> load bit-equal, the 4 -> 1 reshard's state
+bit-equal across devices.
 
 Each phase prints one JSON line; the line before the last is the kernel
 table, the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -177,6 +198,20 @@ STAGE2_H = 2
 # merge chunk at gooaq.TABLE2[0]'s k1.
 STAGE1_K1 = (48, 1255, 2425)
 TASK2_K1 = 96
+
+# The sharded layout (phases sharded_device_parity, sharded, sharded_task2):
+# S logical shards of the card.  Its save -> load and reshard checks, and
+# the S-shards-against-one check of the sharded graph, run on the first
+# SHARDED_CHECK_ROWS rows (a cut of depth), the latter over
+# SHARDED_TASK2_PARITY_ORDERS orders.
+SHARDS = 4
+SHARDED_CHECK_ROWS = 262_144
+SHARDED_TASK2_PARITY_ORDERS = 4
+# recall@15 of the sharded graph: scripts/distributed_check.py's criteria,
+# above 0.5 and within 0.05 of the single-device graph.
+SHARDED_TASK2_RECALL_FLOOR = 0.5
+SHARDED_TASK2_RECALL_TOL = 0.05
+HALO_CHECK_ROWS = 1 << 18  # rows a pass of the halo kernel's plain check
 
 
 def kernel_fns():
@@ -627,6 +662,8 @@ def phase_device_parity(torch, cfg, lsm_cfg, n: int, seed: int):
     assert_ids_equal_up_to_ties(cg[0], gg[0], cg[1])
     phase_device_parity_lsm(torch, lsm_cfg, pts, seed)
     phase_device_parity_engine(torch, lsm_cfg, pts, seed)
+    phase_sharded_device_parity(torch, dataclasses.replace(cfg, store_points=True), pts,
+                                seed)
 
 
 def phase_device_parity_lsm(torch, cfg, pts, seed: int):
@@ -848,7 +885,7 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float,
           "load_s": load_s})
     if not same:
         raise AssertionError("search after save -> load differs")
-    return {"build": build_launches, "search": launches}, truth
+    return {"build": build_launches, "search": launches}, truth, recall
 
 
 def phase_stage2_step(torch, index, queries, reps: int) -> dict:
@@ -1765,7 +1802,7 @@ def phase_task2(torch, points, params, seed: int, recall_floor: float):
         raise AssertionError(f"task-2 recall@15 {recall} below floor {recall_floor}")
 
     phase_task2_profile(torch, index, params)
-    return {"task2_build": build_launches, "task2": launches}
+    return {"task2_build": build_launches, "task2": launches}, (sample, truth, recall)
 
 
 def phase_task2_profile(torch, index, params, top: int = 12):
@@ -1828,6 +1865,361 @@ def phase_task2_profile(torch, index, params, top: int = 12):
           "top_kernels": kernels, "top_ops": ops})
 
 
+def sharded_searches(idx, queries, params) -> dict:
+    """The merges the smoke holds a sharded index to, results on the host:
+    tree (the "auto" of 4 shards), gather, tree with the prune, and the
+    unmerged per-shard results."""
+    out = {name: [t.cpu() for t in idx.search(queries, params, **kw)]
+           for name, kw in (("tree", {}), ("gather", dict(merge="gather")),
+                            ("tree_prune", dict(merge="tree", prune=True)))}
+    out["local"] = [t.cpu() for t in idx.search_local(queries, params)]
+    return out
+
+
+def check_merges_agree(torch, res: dict, where: str) -> None:
+    """Tree and gather: sorted distances bit-equal; the prune: bit-equal to
+    the tree, ids included."""
+    (ti, td), (_, gd), (pi, pd) = res["tree"], res["gather"], res["tree_prune"]
+    if not torch.equal(td.sort(1).values, gd.sort(1).values):
+        raise AssertionError(f"{where}: tree and gather merges differ in distance")
+    if not (torch.equal(pi, ti) and torch.equal(pd, td)):
+        raise AssertionError(f"{where}: the pruned tree differs from the tree")
+
+
+def sharded_state(idx) -> dict:
+    """A sharded index's state on the host, by name."""
+    import torch
+
+    out = {f"stack.{k}": v.cpu() for k, v in idx.stack._asdict().items()}
+    if idx.points is not None:
+        out["points"] = idx.points.cpu()
+    out["n_valid"] = torch.as_tensor(idx.n_valid)
+    out["pad_max"] = torch.tensor(idx.pad_max)
+    return out
+
+
+def states_differ(torch, a: dict, b: dict) -> list:
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+def sharded_round_trip(torch, idx, tag: str):
+    """Save ``idx``, load it at its own shard count (state bit-equal to
+    ``idx``'s) and at one shard.  Returns the timings and the 1-shard
+    index."""
+    from repro_torch.index import ShardedHilbertIndex
+
+    dev = idx.device
+    path = os.path.join(ROOT, "build", f"smoke_sharded_{tag}")
+    shutil.rmtree(path, ignore_errors=True)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        idx.save(path)
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        same = ShardedHilbertIndex.load(path, device=dev)
+        out["load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = ShardedHilbertIndex.load(path, n_shards=1, device=dev)
+        out["reshard_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    out["reload_differs_in"] = states_differ(torch, sharded_state(same), sharded_state(idx))
+    if out["reload_differs_in"] or one.n_shards != 1:
+        raise AssertionError(f"sharded save -> load ({tag}): {out}")
+    return out, one
+
+
+def phase_sharded_device_parity(torch, cfg, pts, seed: int):
+    """A 4-shard index on both devices at PARITY_ROWS: state bit-equal, every
+    merge and the unmerged search within the contract; on each device the
+    merges agree and save -> same-count load restores the state bit for
+    bit; the 4 -> 1 reshard's state bit-equal across devices, its search
+    within the contract."""
+    from repro_torch.data import ann_datasets
+    from repro_torch.index import SearchParams, ShardedHilbertIndex
+
+    queries = ann_datasets.lowrank_embeddings(64, 384, seed=seed + 1)
+    params = SearchParams(k1=48, k2=384, h=2, k=30)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        idx = ShardedHilbertIndex.build(pts, cfg, n_shards=SHARDS, device=dev)
+        res = sharded_searches(idx, queries, params)
+        check_merges_agree(torch, res, f"sharded_device_parity ({dev})")
+        trip, one = sharded_round_trip(torch, idx, dev)
+        res["resharded"] = [t.cpu() for t in one.search(queries, params)]
+        out[dev] = (sharded_state(idx), one.single.array_bundle(), res, trip,
+                    time.perf_counter() - t0)
+    (gs, g1, gres, gtrip, t_gpu), (cs, c1, cres, ctrip, t_cpu) = out["cuda"], out["cpu"]
+    report = {"phase": "sharded_device_parity", "n": pts.shape[0], "shards": SHARDS,
+              "differ": states_differ(torch, cs, gs), "resharded_differ": lsm_differ(c1, g1),
+              "gpu_s": t_gpu, "cpu_s": t_cpu, "round_trip": {"cuda": gtrip, "cpu": ctrip},
+              "max_abs_dist_diff": {k: float((gres[k][1] - cres[k][1]).abs().max())
+                                    for k in gres}}
+    emit(report)
+    if report["differ"] or report["resharded_differ"]:
+        raise AssertionError(f"cuda sharded index differs from cpu in {report['differ']}"
+                             f" (resharded: {report['resharded_differ']})")
+    for k in ("tree", "gather", "tree_prune", "resharded"):
+        (gi, gd), (ci, cd) = gres[k], cres[k]
+        torch.testing.assert_close(gd, cd, rtol=DIST_RTOL, atol=DIST_ATOL)
+        assert_ids_equal_up_to_ties(ci, gi, cd)
+    (gi, gd), (ci, cd) = gres["local"], cres["local"]
+    for r in range(SHARDS):
+        torch.testing.assert_close(gd[r], cd[r], rtol=DIST_RTOL, atol=DIST_ATOL)
+        assert_ids_equal_up_to_ties(ci[r], gi[r], cd[r])
+
+
+def phase_sharded(torch, cfg, params, points, queries, truth, single_recall: float,
+                  recall_floor: float):
+    """Task 1 on SHARDS logical shards of the card, at full width: the build,
+    8192 queries with each merge (tree, gather, tree with the prune) and
+    unmerged, recall@30 against phase ``recall``'s exact neighbours; then
+    save -> load and a reshard on the first SHARDED_CHECK_ROWS rows.
+    Returns the launches of the build and of the tree search."""
+    from repro_torch.index import HilbertIndex, ShardedHilbertIndex
+
+    n, nq = points.shape[0], queries.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    idx = ShardedHilbertIndex.build(points, cfg, n_shards=SHARDS, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_launches = read_launches(torch)
+    emit({"phase": "sharded_build", "n": n, "shards": SHARDS,
+          "n_valid": idx.n_valid.tolist(), "pad_max": idx.pad_max, "total_s": build_s,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "memory": idx.memory_report(), "launches": build_launches})
+    require_launched("sharded build", build_launches, ["pack_bits"])
+
+    res, runs, launches = {}, {}, None
+    for name, kw in (("tree", {}), ("gather", dict(merge="gather")),
+                     ("tree_prune", dict(merge="tree", prune=True)), ("local", None)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        if kw is None:
+            out = idx.search_local(queries, params)
+        else:
+            out = idx.search(queries, params, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_launches(torch)
+        chunks = idx.last_dispatch_count
+        if name == "tree":
+            launches = counts
+            require_launched("sharded", counts, ["hamming_rows", "qdist_windows",
+                                                 "pack_bits"])
+        res[name] = out
+        runs[name] = {"ms_per_query": sec * 1e3 / nq, "seconds": sec, "chunks": chunks,
+                      "launches_per_chunk": {k: v / chunks for k, v in counts.items() if v},
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    check_merges_agree(torch, res, "sharded")
+    ids, dists = res["tree"]
+    if ids.shape != (nq, params.k) or not torch.isfinite(dists).all():
+        raise AssertionError(f"bad sharded result: shape {tuple(ids.shape)}")
+    hits = (ids.long()[:, :, None] == truth[:, None, :]).any(-1).sum().item()
+    recall = hits / (nq * params.k)
+    emit({"phase": "sharded", "queries": nq, "shards": SHARDS, "runs": runs,
+          "recall_at_30": recall, "single_device_recall_at_30": single_recall,
+          "floor": recall_floor, "launches": launches})
+    if recall < recall_floor:
+        raise AssertionError(f"sharded recall@30 {recall} below floor {recall_floor}")
+    del idx, res, ids, dists
+    torch.cuda.empty_cache()
+
+    rows = min(SHARDED_CHECK_ROWS, n)
+    small_cfg = dataclasses.replace(cfg, store_points=True)
+    small = ShardedHilbertIndex.build(points[:rows], small_cfg, n_shards=SHARDS,
+                                      device="cuda")
+    trip, one = sharded_round_trip(torch, small, "full")
+    q = queries[:PROFILE_QUERIES]
+    single = HilbertIndex.build(points[:rows], small_cfg, device="cuda")
+    trip["reshard_bit_equal_to_single"] = all(
+        torch.equal(a, b) for a, b in zip(one.search(q, params), single.search(q, params)))
+    emit({"phase": "sharded_bundles", "n": rows, "shards": SHARDS, **trip})
+    if not trip["reshard_bit_equal_to_single"]:
+        raise AssertionError("the 1-shard reshard differs from a HilbertIndex build")
+    del small, one, single
+    torch.cuda.empty_cache()
+    return {"sharded_build": build_launches, "sharded": launches}
+
+
+def phase_sharded_task2(torch, points, params, sample, truth, single_recall: float):
+    """Task 2 on SHARDS logical shards (``distributed_knn_graph``): first S
+    shards against one on SHARDED_CHECK_ROWS rows over
+    SHARDED_TASK2_PARITY_ORDERS orders (bit-equal), and the halo windows'
+    kernel against its plain version at the full graph's shape; then the
+    full graph, overflow 0, recall@15 on phase ``task2``'s sampled rows
+    beside its single-device recall.  Returns the launches of the full
+    graph and the halo check's report."""
+    from repro_torch.configs import gooaq
+    from repro_torch.core import distributed
+
+    rows = min(SHARDED_CHECK_ROWS, points.shape[0])
+    pp = dataclasses.replace(params, n_orders=SHARDED_TASK2_PARITY_ORDERS)
+    t0 = time.perf_counter()
+    many = distributed.distributed_knn_graph(points[:rows], pp, gooaq.FOREST, SHARDS)
+    one = distributed.distributed_knn_graph(points[:rows], pp, gooaq.FOREST, 1)
+    equal = torch.equal(many[0], one[0]) and torch.equal(many[1], one[1])
+    emit({"phase": "sharded_task2_parity", "n": rows, "n_orders": pp.n_orders,
+          "bit_equal_to_one_shard": equal, "overflow": [many[2], one[2]],
+          "seconds": time.perf_counter() - t0})
+    if not equal or many[2] or one[2]:
+        raise AssertionError("the sharded graph differs from one shard's, or overflowed")
+    del many, one
+    torch.cuda.empty_cache()
+    halo = phase_sharded_halo_kernel(torch, points, params)
+
+    n = points.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, d2, overflow = distributed.distributed_knn_graph(points, params, gooaq.FOREST,
+                                                          SHARDS)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    launches = read_launches(torch)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require_launched("sharded task-2", launches, ["hamming_rows", "pack_bits"])
+    rows_ = torch.arange(n, device=ids.device, dtype=ids.dtype)[:, None]
+    if (ids.shape != (n, params.k) or not torch.isfinite(d2).all() or (ids < 0).any()
+            or (ids == rows_).any() or (d2[:, 1:] < d2[:, :-1]).any()):
+        raise AssertionError(f"bad sharded graph: shape {tuple(ids.shape)}")
+    got = ids[sample].long()
+    recall = (got[:, :, None] == truth[:, None, :]).any(-1).sum().item() / (
+        sample.numel() * params.k)
+    emit({"phase": "sharded_task2", "n": n, "shards": SHARDS,
+          "params": dataclasses.asdict(params), "graph_s": graph_s, "peak_gib": peak,
+          "overflow": overflow, "recall_at_15": recall,
+          "single_device_recall_at_15": single_recall, "rows": sample.numel(),
+          "floor": SHARDED_TASK2_RECALL_FLOOR, "tol": SHARDED_TASK2_RECALL_TOL,
+          "launches": launches})
+    if overflow:
+        raise AssertionError(f"sharded graph overflowed: {overflow} rows dropped")
+    if (recall < SHARDED_TASK2_RECALL_FLOOR
+            or recall < single_recall - SHARDED_TASK2_RECALL_TOL):
+        raise AssertionError(f"sharded recall@15 {recall} against {single_recall} "
+                             "single-device")
+    del ids, d2
+    torch.cuda.empty_cache()
+    phase_sharded_task2_profile(torch, points, params)
+    return {"sharded_task2": launches}, halo
+
+
+def sharded_graph_setup(torch, points, params):
+    """What ``distributed_knn_graph`` derives from the points before its
+    orders, and the first order's curve: ``(group, quant, codes, sketches,
+    lo, hi, perm, flip)``."""
+    import numpy as np
+
+    from repro_torch.core import quantize, sketch
+    from repro_torch.core.shard_group import ShardGroup
+
+    d = points.shape[1]
+    quant = quantize.fit(points, bits=4)
+    codes = quantize.encode(quant, points)
+    sks = sketch.sketches_from_codes(codes, bits=4)
+    rng = np.random.default_rng(params.seed)
+    perm = torch.as_tensor(rng.permutation(d).astype(np.int32), device=points.device)
+    flip = torch.as_tensor(rng.integers(0, 2, d).astype(bool), device=points.device)
+    return (ShardGroup(SHARDS, points.device), quant, codes, sks, points.amin(0),
+            points.amax(0), perm, flip)
+
+
+def phase_sharded_halo_kernel(torch, points, params) -> dict:
+    """Kernel 1 where the sharded graph launches it: one order's halo
+    windows over SHARDS shards of ``points`` (the graph's first order, k1
+    as ``params``).  Every distance ``halo_window_candidates`` gives a real
+    candidate must equal ``hamming_rows_indexed_ref`` on the same extended
+    table and positions, and every other must be 2**30."""
+    from repro_torch.configs import gooaq
+    from repro_torch.core import distributed
+    from repro_torch.kernels.hamming import hamming_rows_indexed_ref
+
+    group, _, _, sks, lo, hi, perm, flip = sharded_graph_setup(torch, points, params)
+    _, pay, n_valid, ovf = distributed.distributed_hilbert_order(
+        group, points, gooaq.FOREST, lo, hi, perm, flip, payload={"sk": sks})
+    gid, sk = pay["gid"], pay["sk"]
+    cand, dist = distributed.halo_window_candidates(group, gid, sk, n_valid, params.k1)
+    _, ext_s, pos = distributed.halo_tables(group, gid, sk, n_valid, params.k1)
+    max_err, compared = 0, 0
+    for r in range(SHARDS):
+        for a in range(0, pos.shape[0], HALO_CHECK_ROWS):
+            b = a + HALO_CHECK_ROWS
+            ref = hamming_rows_indexed_ref(sk[r, a:b].contiguous(), ext_s[r], pos[a:b])
+            c = cand[r, a:b]
+            real = (c >= 0) & (c != gid[r, a:b, None])
+            want = torch.where(real, ref, 2**30)
+            max_err = max(max_err, int((dist[r, a:b] - want).abs().max()))
+            compared += int(real.sum())
+    report = {"phase": "sharded_halo_kernel", "n": points.shape[0], "shards": SHARDS,
+              "rows_a_shard": pos.shape[0], "k1": params.k1,
+              "table_rows": ext_s.shape[1], "sketch_words": ext_s.shape[2],
+              "distances_compared": compared, "max_abs_err": max_err,
+              "overflow": int(ovf.sum())}
+    emit(report)
+    if max_err or not compared or report["overflow"]:
+        raise AssertionError(f"halo windows' hamming_rows_indexed: {report}")
+    del cand, dist, ext_s, pos, pay, sk, gid
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_sharded_task2_profile(torch, points, params, top: int = 12):
+    """Where one order of the sharded graph goes: ``graph_order``'s stages
+    (keys, sample sort, halo windows, routing home, merge) timed one by one
+    with a synchronize between, the final ADC ranking once, then the device
+    time by kernel of one order under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import gooaq
+    from repro_torch.core import distributed
+
+    n = points.shape[0]
+    group, quant, codes, sks, lo, hi, perm, flip = sharded_graph_setup(
+        torch, points, params)
+    best_id = torch.full((n, params.k2), -1, dtype=torch.int32, device=points.device)
+    best_d = torch.full((n, params.k2), 2**30, dtype=torch.int32, device=points.device)
+
+    def one_order():
+        stages = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+
+        def mark(name):
+            nonlocal t0
+            torch.cuda.synchronize()
+            stages[f"{name}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+
+        distributed.graph_order(group, points, sks, gooaq.FOREST, lo, hi, perm, flip,
+                                best_id, best_d, params.k1, stage=mark)
+        return stages
+
+    one_order()  # warm
+    stages = one_order()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    distributed.final_ranking(points, best_id, quant, codes, params.k)
+    torch.cuda.synchronize()
+    final_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_order()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, kernels, ops, _ = device_time(prof, top)
+    emit({"phase": "sharded_task2_profile", "shards": SHARDS, "stages_s": stages,
+          "final_adc_s": final_s,
+          "graph_estimate_s": params.n_orders * sum(stages.values()) + final_s,
+          "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+          "busy_share": device_ms / wall_ms if device_ms else None,
+          "top_kernels": kernels, "top_ops": ops})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=3_000_000, help="corpus rows")
@@ -1885,7 +2277,7 @@ def main(argv=None) -> int:
         steps["stage1_step"] = phase_stage1_step(torch, index, queries, KERNEL_REPS)
         steps["stage2_step"] = phase_stage2_step(torch, index, queries, KERNEL_REPS)
 
-    main_launches, truth = phase_main_path(
+    main_launches, truth, recall = phase_main_path(
         torch, cfg, params, points, queries, args.recall_floor, after_build=after_build)
     # Beside each row's pre-gathered time, the fused launch the paths make,
     # at the search's shape (the first step of each phase).
@@ -1898,6 +2290,9 @@ def main(argv=None) -> int:
     launches.update(main_launches)
     torch.cuda.empty_cache()
     launches.update(phase_table1(torch, points, queries, truth))
+    torch.cuda.empty_cache()
+    launches.update(phase_sharded(torch, cfg, params, points, queries, truth, recall,
+                                  args.recall_floor))
     del truth
     torch.cuda.empty_cache()
     launches.update(phase_lsm(torch, lsm_cfg, params, points, queries, args.seed,
@@ -1907,8 +2302,15 @@ def main(argv=None) -> int:
         torch, lsm_cfg, params, points, queries, args.seed)))
     del queries
     torch.cuda.empty_cache()
-    launches.update(phase_task2(torch, points, graph_params, args.seed,
-                                args.task2_recall_floor))
+    task2_launches, task2_recall = phase_task2(torch, points, graph_params, args.seed,
+                                               args.task2_recall_floor)
+    launches.update(task2_launches)
+    torch.cuda.empty_cache()
+    sharded_task2_launches, halo = phase_sharded_task2(torch, points, graph_params,
+                                                       *task2_recall)
+    launches.update(sharded_task2_launches)
+    next(r for r in kernels if r["name"] == "hamming_rows")["sharded_halo"] = {
+        k: halo[k] for k in ("rows_a_shard", "k1", "distances_compared", "max_abs_err")}
     for row in kernels:
         by_path = {path: counts[row["name"]] for path, counts in launches.items()}
         row["launches"] = sum(by_path.values())

@@ -1,5 +1,6 @@
 """Public API of the port: :class:`HilbertIndex`, the streaming
-:class:`MutableHilbertIndex`, and their build config."""
+:class:`MutableHilbertIndex`, the row-partitioned
+:class:`ShardedHilbertIndex`, ``build_auto``, and their build config."""
 
 from repro_torch.core.types import (ForestConfig, GraphParams, QuantizerConfig,
                                     SearchParams)
@@ -9,6 +10,7 @@ from repro_torch.checkpoint.wal import WalConfig
 from repro_torch.index.facade import HilbertIndex, build_with_timings
 from repro_torch.index.mutable import (LsmIdSpace, MutableHilbertIndex, Segment,
                                        load_mutable_bundle, save_mutable_bundle)
+from repro_torch.index.sharded import ShardedHilbertIndex, build_auto
 
 __all__ = [
     "ForestConfig",
@@ -26,4 +28,6 @@ __all__ = [
     "WalConfig",
     "load_mutable_bundle",
     "save_mutable_bundle",
+    "ShardedHilbertIndex",
+    "build_auto",
 ]
