@@ -39,11 +39,11 @@ equal those on the CPU, then drives the paths at full width on
   segments, no WAL) bulk-loaded with 2,500,000 rows, two serve threads,
   background maintenance (compaction on a thread) and a ``MetricsServer``,
   as ``benchmarks/serving.py``'s ``run_phase`` drives it: three windows of
-  4 client threads sending 256-query requests — ``baseline`` (100
+  4 client threads sending 256-query requests — ``baseline`` (20
   requests, no writes), ``churn_maintained`` (a writer inserts 4096 rows
   every 0.25 s and deletes the batch it inserted two batches before; at
-  least 400 requests and 2 swaps, at most 80 s) and ``probe`` (tracing
-  on, a 25 % recall probe held to an offline exact evaluation, 50
+  least 40 requests and 2 swaps, at most 80 s) and ``probe`` (tracing
+  on, a 25 % recall probe held to an offline exact evaluation, 30
   requests).  Then a last forced maintenance: every acknowledged,
   undeleted id is live and no other, and a 2048-query search equals a
   fresh build over the live points bit for bit; ``/metrics``,
@@ -55,8 +55,9 @@ equal those on the CPU, then drives the paths at full width on
   recall@15 of 10,000 sampled rows against exact neighbours.
 * The sharded layout on 4 logical shards of the card: after Table 1,
   phase ``sharded`` builds ``ShardedHilbertIndex`` with the Task-1
-  configuration and searches the 8192 queries with the tree merge, the
-  gather merge, the pruned tree and unmerged (recall@30 beside the
+  configuration and searches the 8192 queries with the tree merge and
+  the gather merge, the first 2048 with the pruned tree and unmerged
+  (recall@30 beside the
   single index's; tree and gather with bit-equal sorted distances, the
   prune bit-equal to the tree), then phase ``sharded_bundles`` saves,
   reloads and reshards to one shard a 262,144-row sharded index
@@ -71,6 +72,26 @@ equal those on the CPU, then drives the paths at full width on
   beside the single-device graph's; phase ``sharded_task2_profile`` times
   one order's stages and profiles it.
 
+* The sharded streaming layout on 4 logical shards, after phase
+  ``engine``: phase ``sharded_lsm`` runs ``ShardedMutableHilbertIndex``
+  with the LSM forest (a write buffer of 16,384 rows a shard, at most 4
+  generations): bulk load 2,500,000 rows, stream 500,000 in inserts of
+  4096 with a 0.5 % delete every 65,536 rows and a 2048-query search
+  every 262,144 and at the end (one ``sharded_lsm_round`` line each),
+  recall@30 over the
+  live set, ``compact()`` bit-equal to a fresh ``ShardedHilbertIndex``
+  build over the live rows; phase ``sharded_lsm_bundles`` saves a
+  262,144-row one (format 4), streams more under its WAL, reloads it
+  with WAL replay (bit-equal), reshards it to 2 shards on load (equal to
+  a fresh 2-shard build) and degrades it to a ``MutableHilbertIndex``
+  (equal to a ``HilbertIndex`` build); phase ``sharded_engine`` serves
+  phase ``sharded_lsm``'s compacted index through ``RetrievalEngine``
+  under a writer, background maintenance and a 25 % recall probe (at
+  least one swap, from a maintenance cycle forced at the window's start;
+  online recall within 0.02 of an offline evaluation; a last forced
+  maintenance equal to a fresh sharded build; device memory checked as
+  in ``engine_memory``).
+
 Before them, phase ``device_parity_engine`` runs the same engine
 operations on the CPU and on the card at 20,000 rows (step-mode searches,
 writes, a forced maintenance in a thread and in a compactor child on the
@@ -78,7 +99,10 @@ same device): state bit-equal between devices and modes; and phase
 ``sharded_device_parity`` builds a 4-shard index on both devices at
 20,000 rows: state bit-equal, each merge and the unmerged search within
 the distance contract, save -> load bit-equal, the 4 -> 1 reshard's state
-bit-equal across devices.
+bit-equal across devices; and phase ``sharded_lsm_device_parity`` streams
+a 4-shard ``ShardedMutableHilbertIndex`` on both devices (seals, tier
+merges, deletes reaching buffered rows, a read-triggered rewrite,
+``compact()``) with its state bit-equal across devices after each stage.
 
 Each phase prints one JSON line; the line before the last is the kernel
 table, the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -152,11 +176,14 @@ ENGINE_CLIENTS = 4
 ENGINE_REQUEST = 256  # queries per request
 ENGINE_WRITE_BATCH = 4096
 ENGINE_WRITE_PAUSE_S = 0.25
-ENGINE_BASELINE_REQUESTS = 100
-ENGINE_CHURN_REQUESTS = 400
+# Window depths, cut to pay for the sharded streaming phases: baseline
+# 100 -> 20 requests, churn 400 -> 40 requests (it still ends only at 2
+# swaps, or at the cap), probe 50 -> 30.
+ENGINE_BASELINE_REQUESTS = 20
+ENGINE_CHURN_REQUESTS = 40
 ENGINE_CHURN_SWAPS = 2
 ENGINE_CHURN_CAP_S = 80.0
-ENGINE_PROBE_REQUESTS = 50
+ENGINE_PROBE_REQUESTS = 30
 ENGINE_PROBE = dict(fraction=0.25, seed=0)
 ENGINE_RECALL_TOL = 0.02  # online vs offline recall (repro's own criterion)
 ENGINE_CHECK_QUERIES = 2048
@@ -170,7 +197,8 @@ ENGINE_SERIES = [
 ]
 
 # Phase table1: the paper's 16 Table-1 rows (repro_torch.benchmarks.
-# task1_table1) over the corpus, on this many of the queries.
+# task1_table1) over the corpus, on this many of the queries: one query
+# chunk, so fewer queries would save no time on a launch-bound search.
 TABLE1_QUERIES = 2048
 TABLE1_TIMED_SEARCHES = 1  # a row; the module's default of 3 took ~100 s more
 PROFILE_QUERIES = 2048  # phase profile's search: one query chunk
@@ -206,12 +234,29 @@ TASK2_K1 = 96
 # SHARDED_TASK2_PARITY_ORDERS orders.
 SHARDS = 4
 SHARDED_CHECK_ROWS = 262_144
+# Queries of phase sharded's timed pruned and unmerged searches (cut from
+# all 8192; the tree and gather merges keep every query).
+SHARDED_CUT_QUERIES = 2048
 SHARDED_TASK2_PARITY_ORDERS = 4
 # recall@15 of the sharded graph: scripts/distributed_check.py's criteria,
 # above 0.5 and within 0.05 of the single-device graph.
 SHARDED_TASK2_RECALL_FLOOR = 0.5
 SHARDED_TASK2_RECALL_TOL = 0.05
 HALO_CHECK_ROWS = 1 << 18  # rows a pass of the halo kernel's plain check
+
+# The sharded streaming layout (phases sharded_lsm_device_parity,
+# sharded_lsm, sharded_lsm_bundles, sharded_engine): the LSM cell on SHARDS
+# logical shards, its 65,536 rows of write buffer split over the shards;
+# one 2048-query search every SHARDED_LSM_SEARCH_EVERY rows and at the end
+# (a cut of depth against the LSM phase's one every LSM_BUFFER rows).  The engine window runs until at
+# least SHARDED_ENGINE_REQUESTS requests, one swap and SHARDED_ENGINE_KEPT
+# probed batches, at most SHARDED_ENGINE_CAP_S; a maintenance cycle forced
+# at its start makes the swap fall inside it.
+SHARDED_LSM_BUFFER = LSM_BUFFER // SHARDS
+SHARDED_LSM_SEARCH_EVERY = 1 << 18
+SHARDED_ENGINE_REQUESTS = 10
+SHARDED_ENGINE_CAP_S = 90.0
+SHARDED_ENGINE_KEPT = 1  # batches the probe keeps before the window may end
 
 
 def kernel_fns():
@@ -664,6 +709,7 @@ def phase_device_parity(torch, cfg, lsm_cfg, n: int, seed: int):
     phase_device_parity_engine(torch, lsm_cfg, pts, seed)
     phase_sharded_device_parity(torch, dataclasses.replace(cfg, store_points=True), pts,
                                 seed)
+    phase_sharded_lsm_device_parity(torch, lsm_cfg, pts, seed)
 
 
 def phase_device_parity_lsm(torch, cfg, pts, seed: int):
@@ -1026,21 +1072,23 @@ def phase_table1(torch, points, queries, truth):
     return {"table1": launches}
 
 
-def phase_engine_memory(torch, run_engine):
-    """Run the engine phase; device memory allocated once it has returned
+def phase_engine_memory(torch, run_engine, name: str = "engine_memory"):
+    """Run an engine phase; device memory allocated once it has returned
     may be at most ENGINE_RETAINED_GIB above what it was before.  No
     collection runs in between: what only the cyclic collector would free
     counts as kept."""
-    from repro_torch.index import HilbertIndex, MutableHilbertIndex
+    from repro_torch.index import (HilbertIndex, MutableHilbertIndex, ShardedHilbertIndex,
+                                   ShardedMutableHilbertIndex)
     from repro_torch.obs import RecallProbe
 
     gc.collect()
     before = torch.cuda.memory_allocated()
     launches = run_engine()
     after = torch.cuda.memory_allocated()
-    kinds = (RecallProbe, HilbertIndex, MutableHilbertIndex)
+    kinds = (RecallProbe, HilbertIndex, MutableHilbertIndex, ShardedHilbertIndex,
+             ShardedMutableHilbertIndex)
     alive = [o for o in gc.get_objects() if type(o) in kinds]
-    report = {"phase": "engine_memory", "allocated_before_gib": before / 2**30,
+    report = {"phase": name, "allocated_before_gib": before / 2**30,
               "allocated_after_gib": after / 2**30,
               "retained_gib": (after - before) / 2**30,
               "limit_gib": ENGINE_RETAINED_GIB,
@@ -1051,6 +1099,27 @@ def phase_engine_memory(torch, run_engine):
         raise AssertionError(f"the engine phase left {report['retained_gib']} GiB "
                              f"allocated after its cleanup (alive: {report['alive']})")
     return launches
+
+
+def count_seals_and_merges(torch, idx) -> dict:
+    """Wrap the flush and the segment merge of an LSM index (either
+    layout) to time and count its seals and tier merges, on the index."""
+    spent = {"seal": [0.0, 0], "merge": [0.0, 0]}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            seg = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[key][0] += time.perf_counter() - t
+            spent[key][1] += seg is not None
+            return seg
+        return run
+
+    idx.flush = timed(idx.flush, "seal")
+    idx._merge_segments = timed(idx._merge_segments, "merge")
+    return spent
 
 
 def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: float):
@@ -1095,22 +1164,7 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
         emit({"phase": "lsm_bulk", "rows": bulk, "bulk_load_s": bulk_s,
               "save_s": save0_s, "memory": mut.memory_report()["per_segment"]})
 
-        # Time the seals (flush) and tier merges on the index itself.
-        spent = {"seal": [0.0, 0], "merge": [0.0, 0]}
-
-        def timed(fn, key):
-            def run(*args, **kwargs):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                seg = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                spent[key][0] += time.perf_counter() - t
-                spent[key][1] += seg is not None
-                return seg
-            return run
-
-        mut.flush = timed(mut.flush, "seal")
-        mut._merge_segments = timed(mut._merge_segments, "merge")
+        spent = count_seals_and_merges(torch, mut)
         pos, rnd = bulk, 0
         while pos < n:
             end = min(pos + LSM_BUFFER, n)
@@ -1347,6 +1401,125 @@ def parse_prometheus(text: str) -> dict:
     return names
 
 
+class EngineLoad:
+    """The engine phases' traffic, ``benchmarks/serving.py``'s: closed-loop
+    clients of ENGINE_REQUEST-query requests cycling through ``q_host``,
+    and a writer that inserts ENGINE_WRITE_BATCH rows of ``stream`` every
+    ENGINE_WRITE_PAUSE_S and deletes the batch it inserted two batches
+    before (rolling expiry).  The writer records each id's corpus row in
+    ``src_row`` (stream row i is corpus row ``bulk + i``) and whether it
+    is live in ``live``."""
+
+    def __init__(self, eng, q_host, stream, bulk: int, src_row, live):
+        import threading
+
+        self.eng, self.q_host, self.stream, self.bulk = eng, q_host, stream, bulk
+        self.src_row, self.live = src_row, live
+        self.writes = {"inserted": 0, "deleted": 0, "batches": 0}
+        self.stop = threading.Event()
+        self._next_q, self._q_lock = 0, threading.Lock()
+        self._w_errors = []
+        self._w_thread = threading.Thread(target=self._writer)
+
+    def _request(self):
+        with self._q_lock:
+            s = self._next_q
+            self._next_q = (s + ENGINE_REQUEST) % (self.q_host.shape[0] - ENGINE_REQUEST)
+        return self.q_host[s : s + ENGINE_REQUEST]
+
+    def run_clients(self, until) -> list:
+        """ENGINE_CLIENTS clients until ``until(requests completed)``; returns
+        the completed tickets."""
+        import threading
+
+        tickets, lock, errors = [], threading.Lock(), []
+
+        def client():
+            try:
+                while not until(len(tickets)):
+                    t = self.eng.submit(self._request())
+                    t.result(timeout=600)
+                    with lock:
+                        tickets.append(t)
+            except BaseException as e:  # surfaced below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client) for _ in range(ENGINE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"engine clients failed: {errors[:1]}")
+        return tickets
+
+    def _writer(self):
+        from collections import deque
+
+        import numpy as np
+
+        pos, recent, eng = 0, deque(), self.eng
+        try:
+            while not self.stop.is_set():
+                if pos + ENGINE_WRITE_BATCH > self.stream.shape[0]:
+                    pos = 0
+                got = eng.insert(self.stream[pos : pos + ENGINE_WRITE_BATCH])
+                self.src_row[got] = self.bulk + pos + np.arange(got.size)
+                self.live[got] = True
+                recent.append(got)
+                self.writes["inserted"] += got.size
+                self.writes["batches"] += 1
+                if len(recent) > 2:
+                    old = recent.popleft()
+                    if eng.delete(old) != old.size:
+                        raise AssertionError("expiry did not tombstone its batch")
+                    self.live[old] = False
+                    self.writes["deleted"] += old.size
+                pos += ENGINE_WRITE_BATCH
+                self.stop.wait(ENGINE_WRITE_PAUSE_S)
+        except BaseException as e:  # surfaced by stop_writer
+            self._w_errors.append(e)
+
+    def start_writer(self) -> None:
+        self._w_thread.start()
+
+    def stop_writer(self) -> None:
+        """Stop the writer; raise if it failed or does not stop."""
+        self.stop.set()
+        if self._w_thread.ident is not None:
+            self._w_thread.join(120)
+        if self._w_errors or self._w_thread.is_alive():
+            raise AssertionError(f"engine writer failed: {self._w_errors[:1]}")
+
+
+def exact_by_id(torch, points, src_row):
+    """Exact top-k by external id, in float64 on the card, for the engine
+    phases' offline checks: id i is row ``src_row[i]`` of ``points`` for
+    every id recorded so far (call once the writer has stopped).  The rows
+    are gathered in float64 once; each call masks the ids whose ``alive``
+    entry is not set (and every id past it)."""
+    import numpy as np
+
+    n_ids = int((src_row >= 0).sum())  # ids are dense: 0 .. n_ids - 1
+    pts = points[torch.from_numpy(src_row[:n_ids]).to(points.device)].double()
+    psq = (pts * pts).sum(1)[None, :]
+
+    def exact(q, alive, k):
+        keep = torch.zeros(n_ids, dtype=torch.bool, device=points.device)
+        m = min(alive.shape[0], n_ids)
+        keep[:m] = torch.from_numpy(np.ascontiguousarray(alive[:m])).to(points.device)
+        top = []
+        for s in range(0, q.shape[0], 256):  # (256, n_ids) float64 at a time
+            qd = torch.from_numpy(q[s : s + 256]).to(points.device).double()
+            d2 = (qd * qd).sum(1, keepdim=True) - 2.0 * (qd @ pts.T) + psq
+            d2 = d2.masked_fill(~keep[None, :], torch.inf)
+            top.append(torch.topk(d2, k, dim=1, largest=False).indices.cpu().numpy())
+            del d2
+        return np.concatenate(top)
+
+    return exact
+
+
 def _window_stats(tickets, batch_rec, compactions, t_start, t_end):
     """Latency percentiles, throughput and the batches that overlapped a
     shadow compaction, from one window's tickets."""
@@ -1392,7 +1565,6 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
     import contextlib
     import threading
     import urllib.request
-    from collections import deque
 
     import numpy as np
 
@@ -1442,78 +1614,7 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
     emit({"phase": "engine_setup", "rows": bulk, "bulk_load_s": bulk_s,
           "metrics_port": server.port, "launch_lock": launch_lock})
 
-    next_q = [0]
-    q_lock = threading.Lock()
-
-    def request_queries():
-        with q_lock:
-            s = next_q[0]
-            next_q[0] = (s + ENGINE_REQUEST) % (q_host.shape[0] - ENGINE_REQUEST)
-        return q_host[s : s + ENGINE_REQUEST]
-
-    def run_clients(done, until):
-        """ENGINE_CLIENTS closed-loop clients until ``until(done)``."""
-        tickets, lock, errors = [], threading.Lock(), []
-
-        def client():
-            try:
-                while not until(len(tickets)):
-                    t = eng.submit(request_queries())
-                    t.result(timeout=600)
-                    with lock:
-                        tickets.append(t)
-            except BaseException as e:  # surfaced below
-                errors.append(e)
-
-        threads = [threading.Thread(target=client) for _ in range(ENGINE_CLIENTS)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(900)
-        if errors or any(th.is_alive() for th in threads):
-            raise AssertionError(f"engine clients failed: {errors[:1]}")
-        return tickets
-
-    def exact_live(alive_ids, q, k):
-        """Exact top-k external ids of host queries ``q`` over the rows that
-        ``src_row`` records for ``alive_ids``, in float64 on the card."""
-        rows = torch.from_numpy(src_row[alive_ids]).to(points.device)
-        pts = points[rows].double()
-        psq = (pts * pts).sum(1)[None, :]
-        top = []
-        for s in range(0, q.shape[0], 256):  # (256, n) float64 at a time
-            qd = torch.from_numpy(q[s : s + 256]).to(points.device).double()
-            d2 = (qd * qd).sum(1, keepdim=True) - 2.0 * (qd @ pts.T) + psq
-            top.append(torch.topk(d2, k, dim=1, largest=False).indices.cpu().numpy())
-            del d2
-        return alive_ids[np.concatenate(top)]
-
-    # Writer: the rolling expiry of benchmarks/serving.py.
-    w_stop, w_errors = threading.Event(), []
-    writes = {"inserted": 0, "deleted": 0, "batches": 0}
-
-    def writer():
-        pos, recent = 0, deque()
-        try:
-            while not w_stop.is_set():
-                if pos + ENGINE_WRITE_BATCH > stream.shape[0]:
-                    pos = 0
-                got = eng.insert(stream[pos : pos + ENGINE_WRITE_BATCH])
-                src_row[got] = bulk + pos + np.arange(got.size)
-                live[got] = True
-                recent.append(got)
-                writes["inserted"] += got.size
-                writes["batches"] += 1
-                if len(recent) > 2:
-                    old = recent.popleft()
-                    if eng.delete(old) != old.size:
-                        raise AssertionError("expiry did not tombstone its batch")
-                    live[old] = False
-                    writes["deleted"] += old.size
-                pos += ENGINE_WRITE_BATCH
-                w_stop.wait(ENGINE_WRITE_PAUSE_S)
-        except BaseException as e:  # surfaced below
-            w_errors.append(e)
+    load = EngineLoad(eng, q_host, stream, bulk, src_row, live)
 
     # Segment count, sampled while the windows run.
     seen = {"max": 0}
@@ -1527,11 +1628,10 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
     mon.start()
 
     # Warm-up: every pow2 batch shape the windows can form, unmeasured.
-    warm = run_clients(None, lambda k: k >= 2 * ENGINE_CLIENTS)
+    warm = load.run_clients(lambda k: k >= 2 * ENGINE_CLIENTS)
     acct0 = accounting_snapshot()
     results, windows_launches = {}, {}
     kept = []  # (queries, served ids, k, snapshot) of every batch the probe kept
-    w_thread = threading.Thread(target=writer)
 
     def window(name, until, before=None):
         swaps0 = eng.metrics.counter("swaps")
@@ -1542,7 +1642,7 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
         t_start = time.perf_counter()
         if before is not None:
             before()
-        tickets = run_clients(None, until)
+        tickets = load.run_clients(until)
         t_end = time.perf_counter()
         comp = [tuple(c) for c in list(compactions)
                 if c[0] < t_end and (c[1] is None or c[1] > t_start)]
@@ -1558,7 +1658,7 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
             "compactions_overlapping": len(comp),
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches": launches, "accounting_delta": delta,
-            "writes": dict(writes),
+            "writes": dict(load.writes),
             "maintenance": {k: eng.metrics.counter(k) for k in (
                 "maintenance_runs", "maintenance_failures", "maintenance_timeouts")},
             "last_maintenance_error": repr(eng.last_maintenance_error),
@@ -1588,7 +1688,7 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
 
         def start_writer():
             t_churn[0] = time.perf_counter()
-            w_thread.start()
+            load.start_writer()
 
         window("churn_maintained", churn_until, before=start_writer)
 
@@ -1614,10 +1714,7 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
             eng.recall_probe = probe
 
         window("probe", lambda k: k >= ENGINE_PROBE_REQUESTS, before=attach_probe)
-        w_stop.set()
-        w_thread.join(120)
-        if w_errors or w_thread.is_alive():
-            raise AssertionError(f"engine writer failed: {w_errors[:1]}")
+        load.stop_writer()
         if results["churn_maintained"]["swaps"] < ENGINE_CHURN_SWAPS:
             raise AssertionError(f"only {results['churn_maintained']['swaps']} "
                                  "swaps in the churn window")
@@ -1635,13 +1732,14 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
         # over the index's own `live_parts`; and each kept batch searched
         # again on its snapshot, which the served ids must equal.
         t0 = time.perf_counter()
+        exact = exact_by_id(torch, points, src_row)
         per_query, served_equal, layouts = [], 0, []
         for q, got_ids, k, snap in kept:
             snap_ids = snap.search(q, params, backend=eng.backend,
                                    query_chunk=eng.query_chunk, allow_rewrite=False)[0]
             served_equal += int(np.array_equal(snap_ids.cpu().numpy(), got_ids))
-            alive = np.flatnonzero(snap._alive[: snap._next_id])
-            per_query.append(recall_at_k(got_ids, exact_live(alive, q, k)))
+            per_query.append(recall_at_k(got_ids, exact(q, snap._alive[: snap._next_id],
+                                                        k)))
             # what each batch was served from: (rows, real rows, dead) per
             # segment, then the buffer's rows; beside the batch's recall
             layouts.append({"recall": float(per_query[-1].mean()),
@@ -1694,7 +1792,8 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
         same = np.array_equal(np.sort(cd, 1), np.sort(fd, 1)) and np.array_equal(
             cids, fids) and np.array_equal(cd, fd)
         final_recall = float(recall_at_k(
-            cids, exact_live(live_ids, q.cpu().numpy(), params.k)).mean())
+            cids, exact(q.cpu().numpy(), live[:n_ids], params.k)).mean())
+        del exact
         # Scrape the three views over HTTP.
         scraped = {}
         for path in ("/metrics", "/metrics.json", "/trace"):
@@ -1729,7 +1828,7 @@ def phase_engine(torch, cfg, params, points, queries, seed: int,
         # The kept snapshots share the served segments: let them go even
         # when a check failed.
         kept.clear()
-        w_stop.set()
+        load.stop.set()
         m_stop.set()
         obs.disable()
         eng.stop(drain=False)
@@ -1882,7 +1981,8 @@ def check_merges_agree(torch, res: dict, where: str) -> None:
     (ti, td), (_, gd), (pi, pd) = res["tree"], res["gather"], res["tree_prune"]
     if not torch.equal(td.sort(1).values, gd.sort(1).values):
         raise AssertionError(f"{where}: tree and gather merges differ in distance")
-    if not (torch.equal(pi, ti) and torch.equal(pd, td)):
+    m = pi.shape[0]  # the prune may search the first queries only
+    if not (torch.equal(pi, ti[:m]) and torch.equal(pd, td[:m])):
         raise AssertionError(f"{where}: the pruned tree differs from the tree")
 
 
@@ -1975,8 +2075,9 @@ def phase_sharded_device_parity(torch, cfg, pts, seed: int):
 def phase_sharded(torch, cfg, params, points, queries, truth, single_recall: float,
                   recall_floor: float):
     """Task 1 on SHARDS logical shards of the card, at full width: the build,
-    8192 queries with each merge (tree, gather, tree with the prune) and
-    unmerged, recall@30 against phase ``recall``'s exact neighbours; then
+    8192 queries with the tree and gather merges, SHARDED_CUT_QUERIES with
+    the pruned tree and unmerged, recall@30 against phase ``recall``'s
+    exact neighbours; then
     save -> load and a reshard on the first SHARDED_CHECK_ROWS rows.
     Returns the launches of the build and of the tree search."""
     from repro_torch.index import HilbertIndex, ShardedHilbertIndex
@@ -1998,13 +2099,14 @@ def phase_sharded(torch, cfg, params, points, queries, truth, single_recall: flo
     res, runs, launches = {}, {}, None
     for name, kw in (("tree", {}), ("gather", dict(merge="gather")),
                      ("tree_prune", dict(merge="tree", prune=True)), ("local", None)):
+        qq = queries if name in ("tree", "gather") else queries[:SHARDED_CUT_QUERIES]
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
         if kw is None:
-            out = idx.search_local(queries, params)
+            out = idx.search_local(qq, params)
         else:
-            out = idx.search(queries, params, **kw)
+            out = idx.search(qq, params, **kw)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = read_launches(torch)
@@ -2014,7 +2116,8 @@ def phase_sharded(torch, cfg, params, points, queries, truth, single_recall: flo
             require_launched("sharded", counts, ["hamming_rows", "qdist_windows",
                                                  "pack_bits"])
         res[name] = out
-        runs[name] = {"ms_per_query": sec * 1e3 / nq, "seconds": sec, "chunks": chunks,
+        runs[name] = {"ms_per_query": sec * 1e3 / qq.shape[0], "queries": qq.shape[0],
+                      "seconds": sec, "chunks": chunks,
                       "launches_per_chunk": {k: v / chunks for k, v in counts.items() if v},
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
     check_merges_agree(torch, res, "sharded")
@@ -2220,6 +2323,500 @@ def phase_sharded_task2_profile(torch, points, params, top: int = 12):
           "top_kernels": kernels, "top_ops": ops})
 
 
+# -- the sharded streaming layout (ShardedMutableHilbertIndex) ------------------------
+
+
+def sharded_lsm_state(idx) -> dict:
+    """Every array of a ShardedMutableHilbertIndex's state, on the host
+    (buffer slots past each shard's count left out: a flush leaves stale
+    rows there)."""
+    import numpy as np
+
+    state = {"next_id": np.asarray(idx._lsm.next_id), "gen": np.asarray(idx._gen),
+             "rr": np.asarray(idx._rr), "alive": idx._lsm.alive.copy(),
+             "buf_count": idx._buf_count.copy()}
+    for s, c in enumerate(idx._buf_count.tolist()):
+        state[f"buf{s}.ids"] = idx._buf_ids[s, :c].copy()
+        state[f"buf{s}.pts"] = idx._buf_pts[s, :c].copy()
+    if idx._bounds is not None:
+        for k in ("_bounds", "_route_lo", "_route_hi"):
+            state[k] = getattr(idx, k).cpu().numpy()
+    for i, seg in enumerate(idx.segments):
+        state[f"seg{i}.meta"] = np.asarray([seg.gen, seg.pad_max, *seg.n_valid])
+        state[f"seg{i}.ids_host"] = seg.ids_host
+        for k, v in seg.stack._asdict().items():
+            state[f"seg{i}.{k}"] = v.cpu().numpy()
+        if seg.points is not None:
+            state[f"seg{i}.points"] = seg.points.cpu().numpy()
+        state[f"seg{i}.quant"] = np.concatenate(
+            [seg.quant.boundaries.cpu().numpy(), seg.quant.centroids.cpu().numpy()], 1)
+    return state
+
+
+def phase_sharded_lsm_device_parity(torch, cfg, pts, seed: int):
+    """A streamed 4-shard ShardedMutableHilbertIndex on both devices: 3/5
+    of the rows bulk-loaded, the rest in inserts of 1000 with 100 deletes
+    after every other one (seals and tier merges), deletes of half the buffered
+    rows and of most of shard 0's base rows, a search that rewrites that
+    generation, then ``compact()``.  After each stage the state is
+    bit-equal across devices and the searches within the contract."""
+    import numpy as np
+
+    from repro_torch.data import ann_datasets
+    from repro_torch.index import SearchParams, ShardedMutableHilbertIndex
+
+    n = pts.shape[0]
+    queries = ann_datasets.lowrank_embeddings(16, 384, seed=seed + 3)
+    params = SearchParams(k1=48, k2=384, h=2, k=30)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(seed)
+        t0 = time.perf_counter()
+        idx = ShardedMutableHilbertIndex(cfg, n_shards=SHARDS, buffer_capacity=512,
+                                         max_segments=3, device=dev)
+        spent = count_seals_and_merges(torch, idx) if dev == "cuda" else None
+        idx.bulk_load(pts[: n * 3 // 5])
+        stages = {}
+
+        def stage(name, **kw):
+            ids, d2 = (t.cpu() for t in idx.search(queries, params, **kw))
+            stages[name] = (sharded_lsm_state(idx), ids, d2)
+
+        for i, s in enumerate(range(n * 3 // 5, n, 1000)):
+            idx.insert(pts[s : s + 1000])
+            if i % 2:
+                idx.delete(rng.choice(idx._lsm.next_id, 100, replace=False))
+        stage("streamed", allow_rewrite=False)
+        buffered = np.concatenate([idx._buf_ids[s, :c]
+                                   for s, c in enumerate(idx._buf_count.tolist())])
+        base = idx.segments[0]
+        idx.delete(np.concatenate([buffered[::2],
+                                   base.ids_host[0, : int(base.n_valid[0]) - 100]]))
+        pressure = idx.rewrite_pressure(params)
+        stage("deleted", allow_rewrite=False)
+        stage("rewritten", merge="gather")
+        idx.compact()
+        stage("compacted")
+        out[dev] = {"stages": stages, "s": time.perf_counter() - t0, "spent": spent,
+                    "pressure": pressure, "buffered_deleted": int(buffered[::2].size)}
+    gpu, cpu = out["cuda"], out["cpu"]
+    report = {"phase": "sharded_lsm_device_parity", "n": n, "shards": SHARDS,
+              "gpu_s": gpu["s"], "cpu_s": cpu["s"], "seals_merges": gpu["spent"],
+              "rewrite_pressure": gpu["pressure"],
+              "buffered_deleted": gpu["buffered_deleted"], "stages": {}}
+    for name in gpu["stages"]:
+        (gs, gi, gd), (cs, ci, cd) = gpu["stages"][name], cpu["stages"][name]
+        report["stages"][name] = {"differ": lsm_differ(cs, gs),
+                                  "segments": int(sum(k.endswith(".meta") for k in gs)),
+                                  "max_abs_dist_diff": float((gd - cd).abs().max())}
+    emit(report)
+    for name, r in report["stages"].items():
+        if r["differ"]:
+            raise AssertionError(f"cuda sharded LSM state ({name}) differs from cpu "
+                                 f"in {r['differ']}")
+        (_, gi, gd), (_, ci, cd) = gpu["stages"][name], cpu["stages"][name]
+        torch.testing.assert_close(gd, cd, rtol=DIST_RTOL, atol=DIST_ATOL)
+        assert_ids_equal_up_to_ties(ci, gi, cd)
+    if gpu["spent"]["seal"][1] < 3 or gpu["spent"]["merge"][1] < 1:
+        raise AssertionError(f"the parity stream ran {gpu['spent']}, not >= 3 seals "
+                             "and >= 1 tier merge")
+    if not (gpu["pressure"] >= 1 and gpu["buffered_deleted"] > 0):
+        raise AssertionError("the parity deletes reached no buffered row or left no "
+                             "generation to rewrite")
+    if report["stages"]["rewritten"]["segments"] < 1 or np.array_equal(
+            gpu["stages"]["deleted"][0]["gen"], gpu["stages"]["rewritten"][0]["gen"]):
+        raise AssertionError("the read-triggered rewrite did not run")
+
+
+def phase_sharded_lsm(torch, cfg, params, points, queries, seed: int,
+                      recall_floor: float, held: list):
+    """ShardedMutableHilbertIndex on SHARDS logical shards at full width;
+    returns the kernel launches of its path (bulk load, stream, searches,
+    compaction) and appends the compacted index to ``held`` for phase
+    ``sharded_engine``.
+
+    Bulk-load the first 5/6 of the points, stream the rest in inserts of
+    ``LSM_BATCH`` rows with a 0.5 % delete every ``LSM_BUFFER`` rows and a
+    search every ``SHARDED_LSM_SEARCH_EVERY`` rows; recall@30 over the
+    live set, then ``compact()`` bit-equal to a fresh sharded build over
+    the live rows.
+    """
+    import numpy as np
+
+    from repro_torch.index import ShardedHilbertIndex, ShardedMutableHilbertIndex
+
+    n = points.shape[0]
+    bulk = n * 5 // 6
+    q = queries[:LSM_QUERIES]
+    rng = np.random.default_rng(seed)
+    live = np.zeros(n, np.bool_)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    reset_launches()
+    idx = ShardedMutableHilbertIndex(cfg, n_shards=SHARDS,
+                                     buffer_capacity=SHARDED_LSM_BUFFER,
+                                     max_segments=LSM_MAX_SEGMENTS)
+    t0 = time.perf_counter()
+    live[idx.bulk_load(points[:bulk])] = True
+    torch.cuda.synchronize()
+    bulk_s = time.perf_counter() - t0
+    emit({"phase": "sharded_lsm_bulk", "rows": bulk, "shards": SHARDS,
+          "bulk_load_s": bulk_s, "n_valid": idx.segments[0].n_valid.tolist(),
+          "memory": idx.memory_report()["per_segment"]})
+    spent = count_seals_and_merges(torch, idx)
+
+    def search():
+        before = read_launches(torch)
+        t0 = time.perf_counter()
+        ids, d2 = idx.search(q, params, allow_rewrite=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        chunks = idx.last_dispatch_count
+        per_chunk = {k: (v - before[k]) / chunks for k, v in read_launches(torch).items()
+                     if v > before[k]}
+        return ids, d2, sec, per_chunk
+
+    pos, rnd, insert_s = bulk, 0, 0.0
+    while pos < n:
+        end = min(pos + LSM_BUFFER, n)
+        t0 = time.perf_counter()
+        for s in range(pos, end, LSM_BATCH):
+            got = idx.insert(points[s : min(s + LSM_BATCH, end)])
+            if not np.array_equal(got, np.arange(s, s + got.size)):
+                raise AssertionError(f"insert at row {s} returned ids {got[:4]}...")
+            live[got] = True
+        torch.cuda.synchronize()
+        insert_s += time.perf_counter() - t0
+        pos = end
+        live_ids = np.flatnonzero(live)
+        dead = rng.choice(live_ids, int(LSM_DELETE * live_ids.size), replace=False)
+        if idx.delete(dead) != dead.size:
+            raise AssertionError("delete of live ids did not tombstone them all")
+        live[dead] = False
+        rnd += 1
+        if (pos - bulk) % SHARDED_LSM_SEARCH_EVERY == 0 or pos == n:
+            ids, d2, sec, per_chunk = search()
+            emit({"phase": "sharded_lsm_round", "round": rnd,
+                  "rows_inserted": pos - bulk, "insert_s": insert_s,
+                  "ms_per_query": sec * 1e3 / q.shape[0], "n_segments": idx.n_segments,
+                  "n_buffered": idx.n_buffered,
+                  "segment_rows": [seg.n_owned for seg in idx.segments],
+                  "seal": list(spent["seal"]), "merge": list(spent["merge"]),
+                  "launches_per_chunk": per_chunk,
+                  "rewrite_pressure": idx.rewrite_pressure(params)})
+            insert_s = 0.0
+    live_ids = np.flatnonzero(live)
+    found = ids[ids >= 0].cpu().numpy()
+    if (idx.n_live != live_ids.size or not np.array_equal(idx._lsm.alive, live)
+            or ids.shape != (q.shape[0], params.k) or not torch.isfinite(d2).all()
+            or not live[found].all()):
+        raise AssertionError("streamed sharded search returned dead ids or bad shapes")
+    if spent["seal"][1] < 3 or spent["merge"][1] < 1:
+        raise AssertionError(f"the stream ran {spent}, not >= 3 seals and >= 1 merge")
+    live_t = torch.from_numpy(live_ids).to(points.device)
+    truth = live_t[exact_topk(torch, points[live_t], q, params.k)]
+    hits = (ids.long()[:, :, None] == truth[:, None, :]).any(-1).sum().item()
+    recall = hits / (q.shape[0] * params.k)
+    del truth
+
+    del idx.flush, idx._merge_segments  # the timing wrappers
+    t0 = time.perf_counter()
+    idx.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    cids, cd = idx.search(q, params)
+    launches = read_launches(torch)
+    require_launched("sharded_lsm", launches, ["hamming_rows", "qdist_windows",
+                                               "pack_bits"])
+    t0 = time.perf_counter()
+    fresh = ShardedHilbertIndex.build(points[live_t], cfg, n_shards=SHARDS)
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    fids, fd = fresh.search(q, params)
+    fids = torch.where(fids >= 0, live_t.to(torch.int32)[fids.clamp_min(0).long()], -1)
+    seg = idx.segments[0]
+    stack_differ = [k for k, v in fresh.stack._asdict().items() if k != "id_map"
+                    and not torch.equal(v, getattr(seg.stack, k))]
+    if not torch.equal(live_t.to(torch.int32)[fresh.stack.id_map.long()], seg.stack.id_map):
+        stack_differ.append("id_map")
+    same = not stack_differ and torch.equal(cids, fids) and torch.equal(cd, fd)
+    del fresh, seg
+    emit({"phase": "sharded_lsm", "seconds": time.perf_counter() - t_phase,
+          "queries": q.shape[0], "recall_at_30": recall, "floor": recall_floor,
+          "live": int(live_ids.size), "seal": spent["seal"], "merge": spent["merge"],
+          "compact_s": compact_s, "fresh_build_s": fresh_s,
+          "compacted_stack_differs_in": stack_differ,
+          "compacted_equals_fresh_build": same,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches})
+    if recall < recall_floor:
+        raise AssertionError(f"sharded LSM recall@30 {recall} below floor {recall_floor}")
+    if not same:
+        raise AssertionError(f"sharded compact() differs from a fresh sharded build "
+                             f"(stack: {stack_differ})")
+    held.append(idx)
+    return {"sharded_lsm": launches}
+
+
+def close_wal(index) -> None:
+    wal = index.detach_wal()
+    if wal is not None:
+        wal.close()
+
+
+def phase_sharded_lsm_bundles(torch, cfg, params, points, queries, seed: int):
+    """Format-4 bundles on the first SHARDED_CHECK_ROWS rows: save, then WAL
+    on, inserts and deletes, the index dropped and loaded with WAL replay
+    (state and search bit-equal to the live index); saved again, a reshard
+    on load to 2 shards (search bit-equal to a fresh 2-shard build over the
+    live rows) and ``load_sharded_mutable_as_mutable`` (search bit-equal to
+    a HilbertIndex build over the live rows)."""
+    import numpy as np
+
+    from repro_torch.index import (HilbertIndex, ShardedHilbertIndex,
+                                   ShardedMutableHilbertIndex, WalConfig,
+                                   load_sharded_mutable_as_mutable)
+
+    rows = min(SHARDED_CHECK_ROWS, points.shape[0])
+    q = queries[:PROFILE_QUERIES]
+    rng = np.random.default_rng(seed)
+    path = os.path.join(ROOT, "build", "smoke_sharded_lsm")
+    shutil.rmtree(path, ignore_errors=True)
+    out = {"phase": "sharded_lsm_bundles", "n": rows, "shards": SHARDS}
+    try:
+        idx = ShardedMutableHilbertIndex(cfg, n_shards=SHARDS, buffer_capacity=4096,
+                                         max_segments=LSM_MAX_SEGMENTS)
+        first = rows * 3 // 4
+        idx.bulk_load(points[:first])
+        for s in range(first, first + 5 * 4096, 4096):
+            idx.insert(points[s : s + 4096])
+        idx.delete(rng.choice(idx._lsm.next_id, 1000, replace=False))
+        t0 = time.perf_counter()
+        idx.save(path)
+        out["save_s"] = time.perf_counter() - t0
+        idx.enable_wal(path, WalConfig())
+        for s in range(first + 5 * 4096, rows, 4096):
+            idx.insert(points[s : min(s + 4096, rows)])
+        idx.delete(rng.choice(np.flatnonzero(idx._lsm.alive), 1000, replace=False))
+        idx.wal.sync()
+        want_state, want = sharded_lsm_state(idx), idx.search(q, params)
+        idx.detach_wal().close()
+        del idx
+        t0 = time.perf_counter()
+        rec = ShardedMutableHilbertIndex.load(path)
+        out["wal_replay_load_s"] = time.perf_counter() - t0
+        got = rec.search(q, params)
+        out["replay_differs_in"] = lsm_differ(want_state, sharded_lsm_state(rec))
+        out["replay_search_bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, want))
+        rec.save(path)  # the WAL's records are now in the checkpoint
+        close_wal(rec)
+        live_ids = np.flatnonzero(rec._lsm.alive)
+        del rec
+        live_t = torch.from_numpy(live_ids).to(points.device)
+
+        def mapped(ids):
+            return torch.where(ids >= 0, live_t.to(torch.int32)[ids.clamp_min(0).long()], -1)
+
+        t0 = time.perf_counter()
+        two = ShardedMutableHilbertIndex.load(path, n_shards=2)
+        out["reshard_load_s"] = time.perf_counter() - t0
+        close_wal(two)
+        fi, fd = ShardedHilbertIndex.build(points[live_t], cfg, n_shards=2).search(q, params)
+        ti, td = two.search(q, params)
+        out["reshard_equals_fresh_build"] = (two.n_shards == 2 and torch.equal(ti, mapped(fi))
+                                             and torch.equal(td, fd))
+        del two
+        t0 = time.perf_counter()
+        one = load_sharded_mutable_as_mutable(path)
+        out["as_mutable_load_s"] = time.perf_counter() - t0
+        close_wal(one)
+        fi, fd = HilbertIndex.build(points[live_t], cfg).search(q, params)
+        mi, md = one.search(q, params)
+        out["as_mutable_equals_build"] = torch.equal(mi, mapped(fi)) and torch.equal(md, fd)
+        del one
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    emit(out)
+    if not (not out["replay_differs_in"] and out["replay_search_bit_equal"]
+            and out["reshard_equals_fresh_build"] and out["as_mutable_equals_build"]):
+        raise AssertionError(f"sharded LSM bundles: {out}")
+    torch.cuda.empty_cache()
+
+
+def phase_sharded_engine(torch, params, points, queries, held: list):
+    """RetrievalEngine over phase ``sharded_lsm``'s index (taken from
+    ``held``): the engine phase's serve threads and 256-query clients, a
+    writer of ENGINE_WRITE_BATCH rows every ENGINE_WRITE_PAUSE_S with
+    rolling expiry, background maintenance and a 25 % recall probe (on from
+    the warm-up), in one
+    window of at least SHARDED_ENGINE_REQUESTS requests and one swap (a
+    maintenance cycle is forced at its start, under that load); the
+    probe held to an offline exact evaluation; then a last forced
+    maintenance equal to a fresh sharded build over the live rows.
+    Returns the kernel launches of its path."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.index import ShardedHilbertIndex
+    from repro_torch.obs import (LatencyRecorder, RecallProbe, RecallProbeConfig,
+                                 recall_at_k)
+    from repro_torch.serve import MaintenancePolicy, RetrievalEngine
+
+    index = held.pop()
+    n = points.shape[0]
+    bulk = n * 5 // 6
+    q_host = queries.cpu().numpy()
+    stream = points[bulk:].cpu().numpy()
+    cap = n + 4_000_000
+    src_row = np.full(cap, -1, np.int64)  # external id -> row of `points`
+    live = np.zeros(cap, np.bool_)
+    src_row[:n] = np.arange(n)  # the LSM phase inserted row i as id i
+    live[: index._lsm.next_id] = index._lsm.alive
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    reset_launches()
+    probe = RecallProbe(RecallProbeConfig(window=1 << 20, **ENGINE_PROBE))
+    kept, k_lock = [], threading.Lock()
+    inner_offer = probe.offer
+
+    def offer(q, got_ids, k, idx):  # under the engine's read lock
+        with k_lock:
+            ok = inner_offer(q, got_ids, k, idx)
+            if ok:
+                kept.append((q.copy(), got_ids.copy(), k, idx.snapshot()))
+        return ok
+
+    probe.offer = offer
+    eng = RetrievalEngine(index, params, maintenance=MaintenancePolicy(
+        max_segments=4, max_tombstone_ratio=0.5, poll_interval_s=0.05),
+        serve_threads=2, compaction="thread", start=True)
+    del index
+    load = EngineLoad(eng, q_host, stream, bulk, src_row, live)
+    forced_errors = []
+
+    def forced_cycle():
+        try:
+            eng.maintain_once(force=True)
+        except BaseException as e:  # surfaced below
+            forced_errors.append(e)
+
+    forced = threading.Thread(target=forced_cycle)
+    try:
+        eng.recall_probe = probe  # on from the warm-up, so it keeps batches early
+        warm = load.run_clients(lambda k: k >= 2 * ENGINE_CLIENTS)
+        eng.metrics.batch_latency = LatencyRecorder()
+        swaps0 = eng.metrics.counter("swaps")
+        t_start = time.perf_counter()
+        load.start_writer()
+        forced.start()
+
+        def until(k):
+            swaps = eng.metrics.counter("swaps") - swaps0
+            over = time.perf_counter() - t_start > SHARDED_ENGINE_CAP_S
+            return over or (k >= SHARDED_ENGINE_REQUESTS and swaps >= 1
+                            and len(kept) >= SHARDED_ENGINE_KEPT)
+
+        tickets = load.run_clients(until)
+        t_end = time.perf_counter()
+        load.stop_writer()
+        forced.join(300)
+        eng.recall_probe = None
+        if forced_errors or forced.is_alive():
+            raise AssertionError(f"the window's forced maintenance failed: "
+                                 f"{forced_errors[:1]}")
+        stats = _window_stats(tickets, eng.metrics.batch_latency, [], t_start, t_end)
+        stats.update({"phase": "sharded_engine_window", "window": "churn_probe",
+                      "swaps": eng.metrics.counter("swaps") - swaps0,
+                      "writes": dict(load.writes), "warmup_requests": len(warm),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "maintenance": {k: eng.metrics.counter(k) for k in (
+                          "maintenance_runs", "maintenance_failures",
+                          "maintenance_timeouts")},
+                      "last_maintenance_error": repr(eng.last_maintenance_error),
+                      "last_swap_timeline": {
+                          k: v for k, v in (eng.last_swap_timeline or {}).items()
+                          if k.endswith("_ms") or k in ("log_depth", "replay_rounds")}})
+        emit(stats)
+        if stats["swaps"] < 1:
+            raise AssertionError("no swap in the sharded engine window")
+        want_samples = sum(q.shape[0] for q, _, _, _ in kept)
+        deadline = time.perf_counter() + 300
+        while len(probe._window) < want_samples:
+            probe.score_pending()
+            if time.perf_counter() > deadline:
+                raise AssertionError("the recall probe left sampled batches unscored")
+            time.sleep(0.05)
+        online = probe.recall()
+        t0 = time.perf_counter()
+        exact = exact_by_id(torch, points, src_row)
+        per_query, served_equal = [], 0
+        for q, got_ids, k, snap in kept:
+            snap_ids = snap.search(q, params, backend=eng.backend,
+                                   query_chunk=eng.query_chunk, allow_rewrite=False)[0]
+            served_equal += int(np.array_equal(snap_ids.cpu().numpy(), got_ids))
+            per_query.append(recall_at_k(got_ids, exact(q, snap._lsm.alive, k)))
+        del exact
+        offline = float(np.concatenate(per_query).mean()) if per_query else float("nan")
+        check = {"phase": "sharded_engine_probe_check", "batches_kept": len(kept),
+                 "online_recall_at_30": online, "offline_recall_at_30": offline,
+                 "served_equals_snapshot_search": served_equal,
+                 "diff": abs(online - offline), "tolerance": ENGINE_RECALL_TOL,
+                 "offline_s": time.perf_counter() - t0}
+        emit(check)
+        kept.clear()
+        if not (check["batches_kept"] and check["diff"] <= ENGINE_RECALL_TOL):
+            raise AssertionError(f"sharded probe recall {online} disagrees with the "
+                                 f"offline evaluation {offline}")
+        if served_equal != check["batches_kept"]:
+            raise AssertionError("served sharded batches differ from their snapshot's "
+                                 "own search")
+
+        t0 = time.perf_counter()
+        if not eng.maintain_once(force=True):
+            raise AssertionError("the last forced maintenance did not swap")
+        final_s = time.perf_counter() - t0
+        launches = read_launches(torch)
+        require_launched("sharded_engine", launches,
+                         ["hamming_rows", "qdist_windows", "pack_bits"])
+        final = eng.index
+        n_ids = final._lsm.next_id
+        live_ids = np.flatnonzero(live[:n_ids])
+        alive_equal = (np.array_equal(final._lsm.alive, live[:n_ids])
+                       and not live[n_ids:].any())
+        q = queries[:ENGINE_CHECK_QUERIES]
+        cids, cd = eng.search(q)
+        live_t = torch.from_numpy(live_ids).to(points.device)
+        rows = torch.from_numpy(src_row[live_ids]).to(points.device)
+        fresh = ShardedHilbertIndex.build(points[rows], final.config, n_shards=SHARDS)
+        fids, fd = fresh.search(q, params)
+        fids = torch.where(fids >= 0, live_t.to(torch.int32)[fids.clamp_min(0).long()],
+                           -1).cpu().numpy()
+        del fresh, rows
+        same = np.array_equal(cids, fids) and np.array_equal(cd, fd.cpu().numpy())
+        emit({"phase": "sharded_engine_final", "final_maintenance_s": final_s,
+              "segments": final.n_segments, "live": int(live_ids.size),
+              "acknowledged_live_equal": alive_equal,
+              "search_equals_fresh_build": same, "launches": launches})
+        if not alive_equal:
+            raise AssertionError("acknowledged writes and the sharded engine's live "
+                                 "set differ")
+        if not same:
+            raise AssertionError("sharded engine search after the last maintenance "
+                                 "differs from a fresh sharded build")
+    finally:
+        kept.clear()
+        load.stop.set()
+        if forced.ident is not None:
+            forced.join(300)
+        eng.stop(drain=False)
+    emit({"phase": "sharded_engine", "seconds": time.perf_counter() - t_phase,
+          "request_ms": stats["request_ms"], "search_ms": stats["search_ms"],
+          "qps": stats["qps"], "swaps": stats["swaps"], "launches": launches})
+    del eng, final, probe
+    torch.cuda.empty_cache()
+    return {"sharded_engine": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=3_000_000, help="corpus rows")
@@ -2300,6 +2897,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches.update(phase_engine_memory(torch, lambda: phase_engine(
         torch, lsm_cfg, params, points, queries, args.seed)))
+    torch.cuda.empty_cache()
+    held = []  # phase sharded_lsm's index, which phase sharded_engine serves
+    launches.update(phase_sharded_lsm(torch, lsm_cfg, params, points, queries, args.seed,
+                                      args.recall_floor, held))
+    torch.cuda.empty_cache()
+    phase_sharded_lsm_bundles(torch, lsm_cfg, params, points, queries, args.seed)
+    launches.update(phase_engine_memory(torch, lambda: phase_sharded_engine(
+        torch, params, points, queries, held), name="sharded_engine_memory"))
     del queries
     torch.cuda.empty_cache()
     task2_launches, task2_recall = phase_task2(torch, points, graph_params, args.seed,

@@ -1,6 +1,8 @@
 """Public API of the port: :class:`HilbertIndex`, the streaming
 :class:`MutableHilbertIndex`, the row-partitioned
-:class:`ShardedHilbertIndex`, ``build_auto``, and their build config."""
+:class:`ShardedHilbertIndex` and its streaming
+:class:`ShardedMutableHilbertIndex`, ``build_auto``, and their build
+config."""
 
 from repro_torch.core.types import (ForestConfig, GraphParams, QuantizerConfig,
                                     SearchParams)
@@ -11,6 +13,11 @@ from repro_torch.index.facade import HilbertIndex, build_with_timings
 from repro_torch.index.mutable import (LsmIdSpace, MutableHilbertIndex, Segment,
                                        load_mutable_bundle, save_mutable_bundle)
 from repro_torch.index.sharded import ShardedHilbertIndex, build_auto
+from repro_torch.index.sharded_mutable import (ShardedMutableHilbertIndex,
+                                               ShardedSegment,
+                                               load_sharded_mutable_as_mutable,
+                                               load_sharded_mutable_bundle,
+                                               save_sharded_mutable_bundle)
 
 __all__ = [
     "ForestConfig",
@@ -29,5 +36,10 @@ __all__ = [
     "load_mutable_bundle",
     "save_mutable_bundle",
     "ShardedHilbertIndex",
+    "ShardedMutableHilbertIndex",
+    "ShardedSegment",
     "build_auto",
+    "load_sharded_mutable_as_mutable",
+    "load_sharded_mutable_bundle",
+    "save_sharded_mutable_bundle",
 ]

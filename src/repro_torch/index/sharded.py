@@ -568,15 +568,14 @@ def build_auto(
       mutable: build the streaming (LSM) facade; ``None`` defers to
         ``config.mutable``.
       values: optional (n, ...) per-point payloads (the mutable facade).
-      buffer_capacity, max_segments: the mutable facade's write buffer
-        rows and sealed-segment cap.
+      buffer_capacity, max_segments: the mutable facades' write-buffer
+        rows (a shard, when sharded) and sealed-segment cap.
       device: ``None`` (the GPU; raises without one) or any torch device.
 
     Returns the facade for the resolved shard count and mutability:
-    :class:`HilbertIndex`, :class:`ShardedHilbertIndex` or
-    :class:`repro_torch.index.MutableHilbertIndex`.  A sharded mutable
-    index raises: ``ShardedMutableHilbertIndex`` is the next slice of the
-    port (ROADMAP module 12 slice (b)).
+    :class:`HilbertIndex`, :class:`ShardedHilbertIndex`,
+    :class:`repro_torch.index.MutableHilbertIndex` or
+    :class:`repro_torch.index.ShardedMutableHilbertIndex`.
     """
     if config is None:
         config = IndexConfig()
@@ -586,9 +585,12 @@ def build_auto(
         n_shards = config.shards if config.shards is not None else 1
     if n_shards > 1:
         if mutable:
-            raise NotImplementedError(
-                "a sharded mutable index waits for the port of "
-                "ShardedMutableHilbertIndex (ROADMAP module 12 slice (b))")
+            from repro_torch.index.sharded_mutable import ShardedMutableHilbertIndex
+
+            return ShardedMutableHilbertIndex.build(
+                points, config, n_shards=n_shards, values=values,
+                buffer_capacity=buffer_capacity, max_segments=max_segments,
+                device=device)
         return ShardedHilbertIndex.build(points, config, n_shards=n_shards,
                                          device=device)
     config = dataclasses.replace(config, shards=None)

@@ -20,7 +20,6 @@ order, the write buffer last).  The segments are never concatenated.
 
 Ground truth needs raw points: layouts built with ``store_points=False``
 report nothing (``engine_recall_unscorable_total`` counts the skips).
-The sharded layouts wait for the port of the sharded indexes.
 """
 
 from __future__ import annotations
@@ -81,14 +80,39 @@ def live_parts(index: Any) -> Optional[List[Part]]:
 
     A mutable index gives one part per segment (its real rows: pow2
     padding repeats rows and is left out) and one for the write buffer; a
-    static :class:`~repro_torch.index.HilbertIndex` gives one part whose
-    row i is external id i.  ``None`` when the points are not stored.
+    sharded-mutable index one per generation and shard (the shard's owned
+    rows, no padding), then one per shard's buffer; a static sharded index
+    one per shard (its valid rows); a static
+    :class:`~repro_torch.index.HilbertIndex` one part whose row i is
+    external id i.  ``None`` when the points are not stored.
     """
-    if hasattr(index, "_owned_rows") or hasattr(index, "stack"):
-        raise NotImplementedError(
-            "recall probing of the sharded layouts waits for the port of "
-            "the sharded indexes (ROADMAP module 12)"
-        )
+    if hasattr(index, "_owned_rows"):  # sharded-mutable
+        alive = index._lsm.alive
+        parts: List[Part] = []
+        for seg in index.segments:
+            if seg.points is None:
+                return None
+            for s in range(index.n_shards):
+                ids, pts = index._owned_rows(seg, s)
+                ids = ids.astype(np.int64)
+                parts.append((ids, pts, alive[ids]))
+        if index._buf_count is not None:
+            for s in range(index.n_shards):
+                c = int(index._buf_count[s])
+                if c:
+                    bids = index._buf_ids[s, :c].astype(np.int64)
+                    parts.append((bids, torch.from_numpy(index._buf_pts[s, :c]),
+                                  alive[bids]))
+        return parts
+    if hasattr(index, "stack"):  # static sharded
+        if index.single is not None:
+            return live_parts(index.single)
+        if index.points is None:
+            return None
+        id_map = index.stack.id_map.cpu().numpy()
+        return [(id_map[s, :nv].astype(np.int64), index.points[s, :nv],
+                 np.ones((nv,), np.bool_))
+                for s, nv in enumerate(int(v) for v in index.n_valid)]
     if hasattr(index, "_buf_points"):
         alive = index._alive
         parts: List[Part] = []

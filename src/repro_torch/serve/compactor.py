@@ -70,13 +70,10 @@ class CompactionChildError(RuntimeError):
 
 def _detect_layout(path: str) -> str:
     if os.path.exists(os.path.join(path, _SHARDED_MANIFEST)):
-        raise NotImplementedError(
-            "out-of-process compaction of a sharded-mutable index waits for "
-            "the port of the sharded layouts (ROADMAP module 12)"
-        )
+        return "sharded_mutable"
     if os.path.exists(os.path.join(path, _MUTABLE_MANIFEST)):
         return "mutable"
-    raise FileNotFoundError(f"no mutable-index manifest under {path!r}")
+    raise FileNotFoundError(f"no mutable/sharded-mutable manifest under {path!r}")
 
 
 def _summary(index) -> Dict[str, int]:
@@ -91,7 +88,12 @@ def _summary(index) -> Dict[str, int]:
 
 
 def _load(path: str, device):
-    _detect_layout(path)
+    """Load either layout on ``device``; a sharded-mutable bundle keeps the
+    shard count its manifest records."""
+    if _detect_layout(path) == "sharded_mutable":
+        from repro_torch.index.sharded_mutable import ShardedMutableHilbertIndex
+
+        return ShardedMutableHilbertIndex.load(path, device=device)
     from repro_torch.index.mutable import MutableHilbertIndex
 
     return MutableHilbertIndex.load(path, device=device)
@@ -141,7 +143,7 @@ def child_main(argv=None) -> int:
     # marker LAST: its atomic rename is the child's commit point.
     fault_point("compactor.child.pre_marker", path=args.out_dir)
     atomic_write_json(os.path.join(args.out_dir, _RESULT_MARKER), {
-        "layout": "mutable",
+        "layout": _detect_layout(args.out_dir),
         "summary": _summary(index),
         "pre_compact_summary": pre,
         "n_segments": int(index.n_segments),
@@ -199,11 +201,6 @@ def compact_in_child(
     policy.  ``workdir`` is reused across cycles (``in``/``out`` are
     cleared first); callers own its lifetime.
     """
-    if hasattr(index, "_owned_rows"):
-        raise NotImplementedError(
-            "out-of-process compaction of a sharded-mutable index waits for "
-            "the port of the sharded layouts (ROADMAP module 12)"
-        )
     phases: Dict[str, Any] = {}
     in_dir = os.path.join(workdir, "in")
     out_dir = os.path.join(workdir, "out")

@@ -1,9 +1,10 @@
 """Async retrieval serving engine: admission, micro-batching, background
 maintenance with double-buffered index swap.
 
-Port of ``repro.serve.engine`` over the port's single-device indexes
-(:class:`~repro_torch.index.HilbertIndex` and
-:class:`~repro_torch.index.MutableHilbertIndex`), with the same
+Port of ``repro.serve.engine`` over the port's indexes
+(:class:`~repro_torch.index.HilbertIndex`,
+:class:`~repro_torch.index.MutableHilbertIndex` and the sharded
+:class:`~repro_torch.index.ShardedMutableHilbertIndex`), with the same
 protocol, metrics, spans and fault points.  Searches run on the index's
 device through the kernel wrappers (``backend="kernel"``); each batch's
 results are copied to the host INSIDE the shared read lock, so the
@@ -283,10 +284,11 @@ class RetrievalEngine:
     """The async serving loop over one index (any layout).
 
     Args:
-      index: the serving index.  The mutable layout
-        (:class:`~repro_torch.index.MutableHilbertIndex`) additionally gets
-        :meth:`insert`/:meth:`delete` routing and background maintenance;
-        the static layout serves read-only.
+      index: the serving index.  The mutable layouts
+        (:class:`~repro_torch.index.MutableHilbertIndex`,
+        :class:`~repro_torch.index.ShardedMutableHilbertIndex`)
+        additionally get :meth:`insert`/:meth:`delete` routing and
+        background maintenance; the static layout serves read-only.
       params: default :class:`SearchParams` for requests that don't carry
         their own.
       max_queue: admission-queue capacity in REQUESTS (backpressure bound).

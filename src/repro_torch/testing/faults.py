@@ -60,9 +60,22 @@ import threading
 from typing import Dict, Optional, Tuple
 
 __all__ = [
-    "FaultInjected", "fault_point", "install_plan", "parse_plan",
+    "FaultInjected", "POINTS", "fault_point", "install_plan", "parse_plan",
     "registered_points", "reset",
 ]
+
+#: Every point the port's code declares (``repro``'s names).
+POINTS = frozenset({
+    "ckpt.npz.post_write", "ckpt.manifest.pre_rename", "ckpt.manifest.post_rename",
+    "ckpt.json.pre_rename", "ckpt.json.post_rename",
+    "wal.append.pre_write", "wal.append.post_write", "wal.fsync.pre",
+    "wal.truncate.pre", "wal.truncate.post",
+    "mutable.save.pre_manifest", "sharded_mutable.save.pre_manifest",
+    "compactor.child.loaded", "compactor.child.compacted",
+    "compactor.child.pre_marker", "compactor.child.post_marker",
+    "engine.maint.pre_compact", "engine.maint.post_compact",
+    "engine.maint.pre_replay", "engine.maint.pre_swap", "engine.maint.post_swap",
+})
 
 
 class FaultInjected(IOError):

@@ -582,3 +582,158 @@ def test_warm_search_leaves_the_shadow_unrewritten(data, tmp_path):
     assert jeng.index._gen == teng.index._gen + 1
     _assert_same(built_alike(_state(jeng.index)), built_alike(_state(teng.index)))
     assert_within_contract(*jeng.search(queries), *teng.search(queries))
+
+
+# -- the engine over the sharded-mutable layout (4 logical shards) -----------------
+
+
+def sharded_mutable(d, n=900, deletes=True):
+    """A 4-shard streaming index: a 600-row base, inserted rows sealed into
+    generations and still buffered, and (by default) every 7th id dead."""
+    from repro_torch.index import ShardedMutableHilbertIndex
+    from _torch_parity import TCFG
+
+    idx = ShardedMutableHilbertIndex.build(d[:600], TCFG, n_shards=4, buffer_capacity=64,
+                                           max_segments=4, device="cpu")
+    for s in range(600, n, 100):
+        idx.insert(d[s : min(s + 100, n)])
+    if deletes:
+        idx.delete(np.arange(0, n, 7))
+    return idx
+
+
+def test_sharded_mutable_step_mode_batches_equal_their_snapshots(data):
+    """Ragged batches served between writes and a forced maintenance: every
+    batch equals a search of the snapshot it was served on (the probe keeps
+    all of them), and each epoch's answers equal a direct search."""
+    from repro_torch.obs.recall import RecallProbeConfig
+
+    d, queries = data
+    idx = sharded_mutable(d)
+    assert idx.n_buffered > 0 and idx.n_segments >= 2
+    eng = tengine.RetrievalEngine(idx, TSP, max_batch=16,
+                                  recall=RecallProbeConfig(fraction=1.0, max_pending=64))
+    served = []
+    for a, b, write in ((0, 5, None), (5, 20, d[900:950]), (20, 37, np.arange(1, 60, 3)),
+                        (37, Q, None)):
+        tickets = [eng.submit(queries[a:b])]
+        while eng.step():
+            pass
+        served += tickets
+        if write is not None and write.ndim == 2:
+            eng.insert(write)
+        elif write is not None:
+            eng.delete(write)
+    assert all(t.epoch == 0 for t in served)
+    pending = list(eng.recall_probe._pending)
+    assert len(pending) == eng.metrics.counter("batches") >= 4
+    for q, ids, k, shadow in pending:
+        got, _ = shadow.search(q, TSP, query_chunk=16, allow_rewrite=False)
+        np.testing.assert_array_equal(ids, host(got))
+    assert eng.maintain_once(force=True) and eng.epoch == 1
+    assert eng.index.n_segments == 1 and eng.index.n_shards == 4
+    got = eng.search(queries)
+    want = eng.index.search(queries, TSP, query_chunk=16, allow_rewrite=False)
+    assert all(np.array_equal(a, host(b)) for a, b in zip(got, want))
+    assert eng.score_recall() > 0
+
+
+@pytest.mark.parametrize("point", ["engine.maint.pre_compact",
+                                   "engine.maint.post_compact",
+                                   "engine.maint.pre_replay",
+                                   "engine.maint.pre_swap"])
+def test_sharded_mutable_maintenance_fault_aborts_cycle_invisibly(data, tmp_path, point):
+    """The checks of ``test_maintenance_fault_aborts_cycle_invisibly`` on
+    the sharded-mutable layout."""
+    d, queries = data
+    tm = sharded_mutable(d)
+    tm.save(str(tmp_path / "m"))
+    tm.enable_wal(str(tmp_path / "m"), TWalConfig(sync_every=1))
+    eng = tengine.RetrievalEngine(tm, TSP)
+    eng.insert(d[900:1000])
+    want = eng.search(queries)
+    tfaults.install_plan({point: (1, "raise")})
+    with pytest.raises(tfaults.FaultInjected):
+        eng.maintain_once(force=True)
+    tfaults.reset()
+    assert eng.index is tm and eng.epoch == 0 and eng._write_log is None
+    assert tm.wal is not None
+    got = eng.search(queries)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    eng.insert(d[1000:1010])
+    assert eng._write_log is None
+    assert eng.maintain_once(force=True) and eng.epoch == 1
+    assert eng.index.wal is not None and eng.index.n_live == tm.n_live
+    eng.index.detach_wal().close()
+
+
+def test_sharded_mutable_serve_thread_waiting_to_launch_holds_no_read_side(
+        data, deadlock_watchdog):
+    """The check of ``test_serve_thread_waiting_to_launch_holds_no_read_side``
+    on the sharded-mutable layout."""
+    deadlock_watchdog(120.0)
+    d, queries = data
+    tm = sharded_mutable(d, n=600, deletes=False)
+    eng = tengine.RetrievalEngine(tm, TSP, maintenance=None, start=True)
+    try:
+        with eng._launch_lock:  # another batch's search is launching
+            ticket = eng.submit(queries[:4])
+            while ticket.batched_at is None:
+                time.sleep(0.01)
+            time.sleep(0.2)  # the serve thread now waits on the launch lock
+            writer = threading.Thread(target=eng.insert, args=(d[600:650],))
+            writer.start()
+            writer.join(30.0)
+            assert not writer.is_alive(), "a write waited for a queued search"
+        ids, _ = ticket.result(30.0)
+        assert ids.shape == (4, TSP.k)
+        assert tm.n_live == 650
+    finally:
+        eng.stop(drain=False)
+
+
+def test_sharded_mutable_warm_search_leaves_the_shadow_unrewritten(data):
+    """The check of ``test_warm_search_leaves_the_shadow_unrewritten`` on
+    the sharded-mutable layout: deletes replayed onto the compacted shadow
+    push its generation past the stage-2 pool, the warm pass does not
+    rewrite it, and ``rewrite_pressure`` calls the next cycle."""
+    from _jax_sharded_mutable_4dev import state_arrays
+
+    d, queries = data
+    tm = sharded_mutable(d, n=1200, deletes=False)
+    eng = tengine.RetrievalEngine(tm, TSP, maintenance=None)
+    eng.submit(queries[:8])
+    assert eng.step() == 1  # one batch shape for the warm pass
+    snapshot = eng.index.snapshot
+
+    def snap():
+        shadow = snapshot()
+        inner = shadow.compact
+
+        def compact():
+            inner()
+            # 900 of 1200 dead: ~225 a shard, past the 192 - 10 pool
+            eng.delete(np.setdiff1d(np.arange(1200), np.arange(0, 1200, 4)))
+        shadow.compact = compact
+        return shadow
+
+    eng.index.snapshot = snap
+    assert eng.maintain_once(force=True)
+    swapped = eng.index
+    assert swapped.rewrite_pressure(TSP) == 1 and swapped.n_segments == 1
+    gen = swapped._gen
+    got = eng.search(queries)
+    want = swapped.search(queries, TSP, query_chunk=16, allow_rewrite=False)
+    assert all(np.array_equal(a, host(b)) for a, b in zip(got, want))
+    assert swapped._gen == gen  # served searches rewrote nothing
+    assert eng.maintain_once(force=True)
+    assert eng.index.rewrite_pressure(TSP) == 0
+    fresh = sharded_mutable(d, n=1200, deletes=False)
+    fresh.delete(np.setdiff1d(np.arange(1200), np.arange(0, 1200, 4)))
+    fresh.compact()
+    want_state, got_state = state_arrays(fresh), state_arrays(eng.index)
+    for key in [k for k in want_state if k.endswith("gen") or k == "buf_pts"]:
+        del want_state[key], got_state[key]  # generations count builds; stale rows
+    assert sorted(want_state) == sorted(got_state)
+    for key in want_state:
+        np.testing.assert_array_equal(want_state[key], got_state[key], err_msg=key)

@@ -539,3 +539,78 @@ def test_chunked_scorer_breaks_exact_ties_by_position(chunk):
     want = trecall.exact_topk(q, ids, p, 7, chunk=1500)
     np.testing.assert_array_equal(trecall.exact_topk(q, ids, p, 7, chunk=chunk), want)
     assert (want[:, :3] % 500 == want[:, :1] % 500).all()  # the three copies first
+
+
+# -- live_parts of the sharded layouts, against repro on 4 devices -----------------
+
+
+@pytest.fixture(scope="module")
+def sharded_ref(tmp_path_factory):
+    """repro's live_points of its sharded layouts, from the 4-device run of
+    ``tests/_jax_sharded_mutable_4dev.py`` (once per pytest run)."""
+    import os
+
+    from _jax_sharded_mutable_4dev import reference
+
+    return np.load(os.path.join(reference(tmp_path_factory), "ref.npz"))
+
+
+@pytest.fixture(scope="module")
+def sharded_indexes():
+    """The port's sharded-mutable index as the script's stage ``stream``
+    left it, and a static 4-shard index over the script's first rows."""
+    import _jax_sharded_mutable_4dev as script
+    from repro_torch.data import ann_datasets
+    from repro_torch.index import (ForestConfig, IndexConfig, SearchParams,
+                                   ShardedHilbertIndex, ShardedMutableHilbertIndex)
+
+    cfg = IndexConfig(forest=ForestConfig(**script.FOREST), seal_pow2=script.SEAL_POW2)
+    data, queries = ann_datasets.lowrank_dataset_with_queries(script.N, script.Q, script.D,
+                                                              n_clusters=8, seed=0)
+    got = {}
+
+    def on_stage(name, idx):
+        # the script's searches rewrite over-tombstoned generations
+        idx.search(queries, SearchParams(**script.SEARCH))
+        if name == "stream":
+            got["sharded_mutable"] = idx.snapshot()
+
+    script.run_script(lambda rows: ShardedMutableHilbertIndex.build(
+        rows, cfg, n_shards=script.SHARDS, buffer_capacity=script.BUFFER,
+        max_segments=script.MAX_SEGMENTS, device="cpu"), data, on_stage)
+    got["sharded"] = ShardedHilbertIndex.build(data[: script.BASE], cfg,
+                                               n_shards=script.SHARDS, device="cpu")
+    return got
+
+
+@pytest.mark.parametrize("layout", ["sharded_mutable", "sharded"])
+def test_live_parts_of_sharded_layouts_match_repro(sharded_ref, sharded_indexes, layout):
+    """One part per (generation, shard) and per buffer slice, or per shard:
+    the live set once each, no padding copies, in repro's order."""
+    idx = sharded_indexes[layout]
+    parts = trecall.live_parts(idx)
+    tids, tpts = trecall.live_points(idx)
+    assert np.unique(tids).size == tids.size
+    if layout == "sharded_mutable":
+        assert len(parts) == idx.n_segments * idx.n_shards + int(
+            np.count_nonzero(idx._buf_count))
+        np.testing.assert_array_equal(np.sort(tids), np.flatnonzero(idx._lsm.alive))
+    else:
+        assert len(parts) == idx.n_shards
+        np.testing.assert_array_equal(np.sort(tids), np.arange(idx.n_points))
+    prefix = "lp_mut" if layout == "sharded_mutable" else "lp_static"
+    np.testing.assert_array_equal(tids, sharded_ref[prefix + "_ids"])
+    np.testing.assert_array_equal(tpts, sharded_ref[prefix + "_pts"])
+
+
+def test_sharded_parts_score_like_the_concatenation(sharded_indexes):
+    import _jax_sharded_mutable_4dev as script
+    from repro_torch.data import ann_datasets
+
+    _, queries = ann_datasets.lowrank_dataset_with_queries(script.N, script.Q, script.D,
+                                                           n_clusters=8, seed=0)
+    for idx in sharded_indexes.values():
+        ids, pts = trecall.live_points(idx)
+        one_shot = trecall.exact_topk(queries, ids, pts, 10, chunk=ids.size)
+        got = trecall.exact_topk_parts(queries, trecall.live_parts(idx), 10, chunk=7)
+        np.testing.assert_array_equal(got, one_shot)

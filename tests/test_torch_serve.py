@@ -13,6 +13,7 @@
 """
 
 import itertools
+import json
 import os
 import threading
 import time
@@ -323,3 +324,89 @@ def test_compactor_child_of_a_cuda_index_never_compacts_on_the_cpu(tmp_path):
         env=compactor._child_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode == 3 and "no GPU" in out.stderr
     assert not os.path.exists(tmp_path / "out")
+
+
+# -- the sharded-mutable layout (4 logical shards) ---------------------------------
+
+
+def _sharded_mutable(d, n=900):
+    from repro_torch.index import ShardedMutableHilbertIndex
+
+    idx = ShardedMutableHilbertIndex.build(d[:600], TCFG, n_shards=4, buffer_capacity=64,
+                                           max_segments=4, device="cpu")
+    for s in range(600, n, 100):
+        idx.insert(d[s : s + 100])
+    idx.delete(np.arange(0, n, 7))
+    return idx
+
+
+def test_sharded_mutable_compaction_thread_and_child_bit_equal_to_fresh_build(data,
+                                                                               tmp_path):
+    """``maintain_once(force=True)`` with the shadow compacted in a thread
+    and in the child (``python -m repro_torch.serve.compactor IN OUT
+    --device cpu`` on a format-4 bundle): the two swapped-in indexes are
+    bit-equal to each other, and search bit-equal to a fresh sharded build
+    over the live rows."""
+    from repro_torch.index import ShardedHilbertIndex
+    from _jax_sharded_mutable_4dev import state_arrays
+
+    d, queries = data
+    out = {}
+    for mode in ("thread", "subprocess"):
+        eng = RetrievalEngine(_sharded_mutable(d), TSP, compaction=mode,
+                              compaction_dir=str(tmp_path / mode))
+        eng.insert(d[900:1000])
+        eng.delete(np.arange(5, 950, 3))
+        assert eng.maintain_once(force=True) and eng.epoch == 1
+        assert eng.last_swap_timeline["compaction"] == mode
+        out[mode] = eng
+    with open(tmp_path / "subprocess" / "out" / "compact_result.json") as f:
+        assert json.load(f)["layout"] == "sharded_mutable"
+    a, b = (state_arrays(out[m].index) for m in ("thread", "subprocess"))
+    a["buf_pts"] = b["buf_pts"]  # the thread's index keeps stale buffer rows
+    assert sorted(a) == sorted(b)
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    idx = out["thread"].index
+    assert idx.n_segments == 1 and idx.n_shards == 4 and idx.n_buffered == 0
+    live = np.flatnonzero(idx._lsm.alive)
+    fresh = ShardedHilbertIndex.build(d[live], TCFG, n_shards=4, device="cpu")
+    fi, fd = fresh.search(queries, TSP)
+    fi = torch.where(fi >= 0, torch.from_numpy(live.astype(np.int32))[fi.long()], -1)
+    for eng in out.values():
+        got = eng.index.search(queries, TSP)
+        assert torch.equal(got[0], fi) and torch.equal(got[1], fd)
+
+
+@pytest.mark.parametrize("rows", [48, 45, 0, 16])
+def test_pipelined_search_is_bit_identical_on_sharded_mutable(data, rows):
+    d, queries = data
+    idx = _sharded_mutable(d)
+    q = queries[:rows]
+    ids, d2 = pipelined_search(idx, q, TSP, query_chunk=16, allow_rewrite=False)
+    want = idx.search(q, TSP, query_chunk=16, allow_rewrite=False)
+    assert torch.equal(ids, want[0]) and torch.equal(d2, want[1])
+
+
+def test_sharded_mutable_snapshot_unchanged_while_every_write_path_runs(data, tmp_path):
+    """The sharded-mutable snapshot shares its generations' stacked tensors
+    with the original: every write path on the original leaves them and
+    the snapshot's search bit-equal to before."""
+    d, queries = data
+    idx = _sharded_mutable(d, n=700)
+    snap = idx.snapshot()
+    shared = [t.clone() for seg in snap.segments for t in list(seg.stack) + [seg.points]]
+    want = snap.search(queries, TSP)
+    idx.enable_wal(str(tmp_path / "wal"), WalConfig(sync_every=1))
+    idx.insert(d[700:1100])                 # buffers, seals, tier merges
+    idx.delete(np.arange(1, 1100, 2))       # half of everything
+    idx.search(queries, SearchParams(k1=16, k2=8, h=1, k=10))  # rewrites
+    idx.bulk_load(d[1100:1300])
+    idx.insert(d[1300:1350])
+    idx.flush()
+    idx.compact()
+    got = snap.search(queries, TSP)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    now = [t for seg in snap.segments for t in list(seg.stack) + [seg.points]]
+    assert all(torch.equal(a, b) for a, b in zip(shared, now))
+    idx.detach_wal().close()

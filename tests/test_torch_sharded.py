@@ -40,7 +40,8 @@ from repro_torch.core import sketch as tsketch
 from repro_torch.core.shard_group import ShardGroup
 from repro_torch.data import ann_datasets
 from repro_torch.index import (ForestConfig, HilbertIndex, IndexConfig,
-                               MutableHilbertIndex, SearchParams)
+                               MutableHilbertIndex, SearchParams,
+                               ShardedMutableHilbertIndex)
 from repro_torch.index.sharded import ShardedHilbertIndex, build_auto
 from test_kernels_integration import (DIST_ATOL, DIST_RTOL,
                                       _assert_ids_equal_up_to_distance_ties)
@@ -328,8 +329,9 @@ def test_build_auto_picks_the_facade_by_shard_count(dataset):
     assert isinstance(two, ShardedHilbertIndex) and two.n_shards == 2
     mut = build_auto(pts, TCFG, mutable=True, device="cpu")
     assert isinstance(mut, MutableHilbertIndex) and mut.n_live == 512
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_auto(pts, TCFG, n_shards=2, mutable=True, device="cpu")
+    smut = build_auto(pts, TCFG, n_shards=2, mutable=True, device="cpu")
+    assert isinstance(smut, ShardedMutableHilbertIndex) and smut.n_shards == 2
+    assert smut.n_live == 512
     with pytest.raises(ValueError):
         ShardedHilbertIndex.build(pts, two.config, n_shards=3, device="cpu")
 
