@@ -25,9 +25,9 @@ equal those on the CPU, then drives the paths at full width on
   launch, against the launch that reads the windows from the codes.
 * The paper's Table 1 (phase ``table1``: ``repro_torch.benchmarks.
   task1_table1``): its 16 rows (160 and 120 trees of the PUBMED23 forest,
-  k1 up to 4000) on the same points and the first 2048 queries, one timed
-  search a row after a warm-up search a forest, scored against the exact
-  neighbours phase ``recall`` computed.
+  k1 up to 4000) on the first 1,000,000 points and the first 2048
+  queries, one timed search a row after a warm-up search a forest, scored
+  against their exact neighbours among those points.
 * LSM (phase ``lsm``): ``MutableHilbertIndex`` with the same forest and
   stored points bulk-loads 2,500,000 rows as one segment, saves, turns on
   its WAL, then streams the other 500,000 rows in inserts of 4096 with
@@ -92,12 +92,33 @@ equal those on the CPU, then drives the paths at full width on
   maintenance equal to a fresh sharded build; device memory checked as
   in ``engine_memory``).
 
+* The kNN-LM serving path, last (``repro_torch.launch.serve``'s
+  functions, gemma3_1b at its published widths, random weights from
+  ``--seed``): phase ``lm_device_parity`` holds the smoke config's
+  forward, prefill and decode (fp32) and the scheduler's tokens on the
+  card to the CPU; phase ``lm_full_width`` checks ``param_count()`` and a
+  prefill of 1,016 tokens plus 8 decode steps against the forward pass
+  (fp32, 2 x 1,024 tokens); phase ``knn_lm`` builds a datastore of the
+  hidden states of 512 sequences of 2,049 tokens (1,048,576 keys x 1152)
+  and decodes 16 prompts of 1,024 tokens for 64 steps with a lookup a
+  step and churn every 4 (the kernel route equal to the plain route on
+  every step's hidden states, mixed rows summing to 1, recall@8 against
+  exact top-8 on every step), then 16
+  steps through ``serving_engine`` and a forced ``compact()``; phase
+  ``knn_lm_sharded`` builds the same keys on 4 logical shards, decodes 16
+  steps, saves and loads a store of the first 131,072 keys on 4 shards
+  and on 1, and serves a static 4-shard index through
+  ``RetrievalEngine`` (bit-equal to a direct search); phase
+  ``scheduler`` runs ``ContinuousBatchingEngine`` (8 slots, 24 requests
+  of 64-1,024 prompt tokens, 32 new each) sampling through
+  ``knn_lm_mix``.
+
 Before them, phase ``device_parity_engine`` runs the same engine
-operations on the CPU and on the card at 20,000 rows (step-mode searches,
+operations on the CPU and on the card at 10,000 rows (step-mode searches,
 writes, a forced maintenance in a thread and in a compactor child on the
 same device): state bit-equal between devices and modes; and phase
 ``sharded_device_parity`` builds a 4-shard index on both devices at
-20,000 rows: state bit-equal, each merge and the unmerged search within
+10,000 rows: state bit-equal, each merge and the unmerged search within
 the distance contract, save -> load bit-equal, the 4 -> 1 reshard's state
 bit-equal across devices; and phase ``sharded_lsm_device_parity`` streams
 a 4-shard ``ShardedMutableHilbertIndex`` on both devices (seals, tier
@@ -200,14 +221,22 @@ ENGINE_SERIES = [
 # task1_table1) over the corpus, on this many of the queries: one query
 # chunk, so fewer queries would save no time on a launch-bound search.
 TABLE1_QUERIES = 2048
+# Its rows (a cut of depth from the corpus's 3,000,000, to pay for the
+# kNN-LM phases): the first TABLE1_ROWS, with their own exact neighbours.
+TABLE1_ROWS = 1_000_000
 TABLE1_TIMED_SEARCHES = 1  # a row; the module's default of 3 took ~100 s more
-PROFILE_QUERIES = 2048  # phase profile's search: one query chunk
+CHUNK_QUERIES = 2048  # one query chunk: the bundle checks' queries
 
 # Device memory the engine phase may leave allocated after its cleanup.
 ENGINE_RETAINED_GIB = 1.0
 
 KERNEL_REPS = 20  # timed runs per kernel (after warm-up)
-PARITY_ROWS = 20_000  # rows of the cuda-vs-cpu build and graph checks
+# Rows of the cuda-vs-cpu checks (cut from 20,000 to pay for the kNN-LM
+# phases), and the write buffers that keep every stage they check firing
+# at that size: seals, tier merges, a read-triggered rewrite.
+PARITY_ROWS = 10_000
+PARITY_BUFFER = 1024  # device_parity_lsm, device_parity_engine (2048 at 20,000)
+PARITY_SHARD_BUFFER = 256  # sharded_lsm_device_parity, a shard (512 at 20,000)
 MERGE_CHUNK = 1 << 16  # rows of one Task-2 merge pass (knn_graph's default)
 
 # Table 1's kernel shapes (pubmed23.TABLE1, 2048 queries a search): stage 1
@@ -257,6 +286,28 @@ SHARDED_LSM_SEARCH_EVERY = 1 << 18
 SHARDED_ENGINE_REQUESTS = 10
 SHARDED_ENGINE_CAP_S = 90.0
 SHARDED_ENGINE_KEPT = 1  # batches the probe keeps before the window may end
+
+# The kNN-LM serving path (phases lm_device_parity, lm_full_width, knn_lm,
+# knn_lm_sharded, scheduler): gemma3_1b at its published widths with
+# random weights from --seed (the published weights are not in the repo),
+# repro.launch.serve's retrieval settings (serve.SEARCH, lambda 0.25).
+LM_ARCH = "gemma3_1b"
+LM_PARITY_RTOL, LM_PARITY_ATOL = 1e-4, 1e-5  # CPU vs card, fp32, TF32 off
+LM_PARITY_LENS = (9, 5, 12, 7, 10)  # the scheduler check's ragged prompts
+LM_DECISIVE_GAP = 2e-2  # argmax compared where top-1 leads by more
+LM_FULL_SEQS, LM_FULL_LEN, LM_FULL_PREFILL = 2, 1024, 1016  # crosses window 512
+LM_FULL_TOL = 2e-2  # test_models_smoke.py's prefill-then-decode tolerance
+KNN_CORPUS = (512, 2049)  # sequences x tokens: 512 x 2048 = 1,048,576 keys
+KNN_FORWARD_BATCH = 16  # sequences a forward pass of the datastore build
+KNN_PROMPTS = (16, 1024)
+KNN_STEPS = 64  # decode steps with lookups and churn every 4
+KNN_ENGINE_STEPS = 16  # decode steps through serving_engine
+KNN_SHARDED_STEPS = 16
+KNN_BUNDLE_ROWS = 1 << 17  # the sharded store's save/load checks (a cut of depth)
+KNN_MIX_TOL = 1e-3  # each row of the mixed distribution sums to 1
+LM_LAM = 0.25
+SCHED_SLOTS, SCHED_MAX_SEQ = 8, 2048
+SCHED_REQUESTS, SCHED_PROMPT, SCHED_NEW = 24, (64, 1024), 32
 
 
 def kernel_fns():
@@ -730,14 +781,15 @@ def phase_device_parity_lsm(torch, cfg, pts, seed: int):
     for dev in ("cuda", "cpu"):
         rng = np.random.default_rng(seed)
         t0 = time.perf_counter()
-        mut = MutableHilbertIndex(cfg, buffer_capacity=2048, max_segments=3,
+        mut = MutableHilbertIndex(cfg, buffer_capacity=PARITY_BUFFER, max_segments=3,
                                   device=dev)
+        spent = count_seals_and_merges(torch, mut) if dev == "cuda" else None
         mut.bulk_load(pts[: n // 2])
         for i, s in enumerate(range(n // 2, n, 1000)):
             mut.insert(pts[s : s + 1000])
             if i % 2:
                 mut.delete(rng.choice(mut.n_live + mut.n_deleted, 100, replace=False))
-        res = {"segments": mut.n_segments}
+        res = {"segments": mut.n_segments, "spent": spent}
         for stage in ("streamed", "compacted"):
             if stage == "compacted":
                 mut.compact()
@@ -747,7 +799,8 @@ def phase_device_parity_lsm(torch, cfg, pts, seed: int):
         out[dev] = res
     gpu, cpu = out["cuda"], out["cpu"]
     report = {"phase": "device_parity_lsm", "n": n, "gpu_s": gpu["s"],
-              "cpu_s": cpu["s"], "segments_streamed": gpu["segments"]}
+              "cpu_s": cpu["s"], "segments_streamed": gpu["segments"],
+              "seals_merges": gpu["spent"]}
     for stage in ("streamed", "compacted"):
         report[stage] = {
             "differ": lsm_differ(cpu[stage][0], gpu[stage][0]),
@@ -760,6 +813,9 @@ def phase_device_parity_lsm(torch, cfg, pts, seed: int):
         (_, gids, gd), (_, cids, cd) = gpu[stage], cpu[stage]
         torch.testing.assert_close(gd, cd, rtol=DIST_RTOL, atol=DIST_ATOL)
         assert_ids_equal_up_to_ties(cids, gids, cd)
+    if gpu["spent"]["seal"][1] < 3 or gpu["spent"]["merge"][1] < 1:
+        raise AssertionError(f"the parity stream ran {gpu['spent']}, not >= 3 seals "
+                             "and >= 1 tier merge")
 
 
 def exact_topk(torch, points, queries, k: int, self_ids=None):
@@ -834,6 +890,7 @@ def phase_profile(torch, search, phase: str, *, cpu_ops: bool, queries: int,
           "profile_s": time.perf_counter() - t0})
 
 
+
 def phase_data(torch, n: int, nq: int, seed: int):
     """The corpus and the held-out queries, drawn on the card from ``seed``."""
     from repro_torch.data import ann_datasets
@@ -906,12 +963,6 @@ def phase_main_path(torch, cfg, params, points, queries, recall_floor: float,
     emit({"phase": "kernel_vs_plain_route", "id_mismatches_within_ties": mism,
           "max_abs_dist_diff": float((dists - dists_r).abs().max()),
           "plain_route_ms_per_query": ref_s * 1e3 / nq})
-
-    # One query chunk: collecting the CPU ops' events costs ~50 s a full
-    # search of 8192 queries.
-    pq = queries[:PROFILE_QUERIES]
-    phase_profile(torch, lambda: index.search(pq, params), "profile", cpu_ops=True,
-                  queries=pq.shape[0])
 
     path = os.path.join(ROOT, "build", "smoke_index")
     shutil.rmtree(path, ignore_errors=True)
@@ -1050,21 +1101,26 @@ def phase_stage1_step(torch, index, queries, reps: int) -> dict:
     return steps
 
 
-def phase_table1(torch, points, queries, truth):
+def phase_table1(torch, points, queries):
     """The paper's Table 1 (``repro_torch.benchmarks.task1_table1``): its 16
-    rows on the corpus, the first TABLE1_QUERIES queries and their exact
-    neighbours from phase ``recall``; returns the launches of its builds
-    and searches."""
+    rows on the first TABLE1_ROWS rows of the corpus and the first
+    TABLE1_QUERIES queries, scored against their exact neighbours among
+    those rows; returns the launches of its builds and searches."""
     from repro_torch.benchmarks import task1_table1
 
     nq = min(TABLE1_QUERIES, queries.shape[0])
+    points = points[:TABLE1_ROWS]
+    t0 = time.perf_counter()
+    truth = exact_topk(torch, points, queries[:nq], task1_table1.K)
+    truth_s = time.perf_counter() - t0
     reset_launches()
     t0 = time.perf_counter()
-    rows = task1_table1.main(points=points, queries=queries[:nq], truth=truth[:nq],
+    rows = task1_table1.main(points=points, queries=queries[:nq], truth=truth,
                              timed_searches=TABLE1_TIMED_SEARCHES)
     launches = read_launches(torch)
     builds = {r["n_trees"]: r["build_s"] for r in rows}
-    emit({"phase": "table1", "n": points.shape[0], "queries": nq, "rows": rows,
+    emit({"phase": "table1", "n": points.shape[0], "queries": nq,
+          "ground_truth_s": truth_s, "rows": rows,
           "build_s": builds, "best_recall_at_30": max(r["recall_at_30"] for r in rows),
           "floor": task1_table1.RECALL_FLOOR, "launches": launches,
           "seconds": time.perf_counter() - t0})
@@ -1209,9 +1265,6 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
             raise AssertionError(f"the stream ran {spent['merge'][1]} tier merges, "
                                  "not the 2 or more it is sized for")
         stream_ids = ids
-        # Where a streamed search's time goes: segments, buffer, host copies.
-        phase_profile(torch, lambda: mut.search(q, params, allow_rewrite=False),
-                      "lsm_profile", cpu_ops=False, queries=q.shape[0])
 
         t0 = time.perf_counter()
         mut.compact()
@@ -1318,7 +1371,7 @@ def phase_device_parity_engine(torch, cfg, pts, seed: int):
         if key == "gpu":
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        mut = MutableHilbertIndex(cfg, buffer_capacity=2048, max_segments=3,
+        mut = MutableHilbertIndex(cfg, buffer_capacity=PARITY_BUFFER, max_segments=3,
                                   device=dev)
         mut.bulk_load(pts[: n // 2])
         eng = RetrievalEngine(mut, params, max_batch=128, maintenance=None)
@@ -2139,7 +2192,7 @@ def phase_sharded(torch, cfg, params, points, queries, truth, single_recall: flo
     small = ShardedHilbertIndex.build(points[:rows], small_cfg, n_shards=SHARDS,
                                       device="cuda")
     trip, one = sharded_round_trip(torch, small, "full")
-    q = queries[:PROFILE_QUERIES]
+    q = queries[:CHUNK_QUERIES]
     single = HilbertIndex.build(points[:rows], small_cfg, device="cuda")
     trip["reshard_bit_equal_to_single"] = all(
         torch.equal(a, b) for a, b in zip(one.search(q, params), single.search(q, params)))
@@ -2367,12 +2420,15 @@ def phase_sharded_lsm_device_parity(torch, cfg, pts, seed: int):
 
     n = pts.shape[0]
     queries = ann_datasets.lowrank_embeddings(16, 384, seed=seed + 3)
-    params = SearchParams(k1=48, k2=384, h=2, k=30)
+    # A stage-2 pool of 128 x 5 = 640 rows: deleting all but 100 of one
+    # shard's base rows (1,400 at 10,000 rows) must pass it to rewrite.
+    params = SearchParams(k1=48, k2=128, h=2, k=30)
     out = {}
     for dev in ("cuda", "cpu"):
         rng = np.random.default_rng(seed)
         t0 = time.perf_counter()
-        idx = ShardedMutableHilbertIndex(cfg, n_shards=SHARDS, buffer_capacity=512,
+        idx = ShardedMutableHilbertIndex(cfg, n_shards=SHARDS,
+                                         buffer_capacity=PARITY_SHARD_BUFFER,
                                          max_segments=3, device=dev)
         spent = count_seals_and_merges(torch, idx) if dev == "cuda" else None
         idx.bulk_load(pts[: n * 3 // 5])
@@ -2577,7 +2633,7 @@ def phase_sharded_lsm_bundles(torch, cfg, params, points, queries, seed: int):
                                    load_sharded_mutable_as_mutable)
 
     rows = min(SHARDED_CHECK_ROWS, points.shape[0])
-    q = queries[:PROFILE_QUERIES]
+    q = queries[:CHUNK_QUERIES]
     rng = np.random.default_rng(seed)
     path = os.path.join(ROOT, "build", "smoke_sharded_lsm")
     shutil.rmtree(path, ignore_errors=True)
@@ -2817,6 +2873,539 @@ def phase_sharded_engine(torch, params, points, queries, held: list):
     return {"sharded_engine": launches}
 
 
+def uncounted(torch, check):
+    """Run ``check`` and restore every kernel's launch count: launches made
+    to compare a path with its plain version are not the path's."""
+    fns = kernel_fns()
+    saved = {name: fn.launches for name, fn in fns.items()}
+    try:
+        return check()
+    finally:
+        torch.cuda.synchronize()
+        for name, fn in fns.items():
+            fn.launches = saved[name]
+
+
+def decisive_mismatches(got, want, gap: float = LM_DECISIVE_GAP) -> int:
+    """Rows whose argmax differs although ``want``'s top-1 leads by > gap."""
+    top2 = want.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > gap
+    return int(((got.argmax(-1) != want.argmax(-1)) & decisive).sum())
+
+
+def greedy_logits(model, prompt, steps: int, max_seq: int) -> list:
+    """The logits of each pick of a greedy decode of one prompt alone."""
+    logits, caches = model.prefill(prompt[None, :])
+    caches = model.pad_caches(caches, max_seq)
+    seen = [logits[0]]
+    for t in range(len(prompt), len(prompt) + steps):
+        logits, caches = model.decode_step(seen[-1].argmax()[None, None], t, caches)
+        seen.append(logits[0])
+    return seen
+
+
+def phase_lm_device_parity(torch, seed: int):
+    """gemma3_1b's smoke config in fp32, the same weights on the CPU and on
+    the card: forward logits and hidden states, prefill logits and hidden
+    state, and 4 decode steps past the local window, within rtol 1e-4 /
+    atol 1e-5; the scheduler on 5 ragged requests with 2 slots gives the
+    same tokens wherever the CPU's top-1 leads by more than 2e-2."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import Transformer, init_params
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine, Request
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH, smoke=True),
+                              compute_dtype="float32")
+    models = {"cpu": init_params(cfg, seed, device="cpu")}
+    models["gpu"] = Transformer(cfg, device="cuda")
+    models["gpu"].load_state_dict(models["cpu"].state_dict())
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (2, 32))
+    s_pre = 28  # the 4 decode steps sit past the smoke window of 8
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in LM_PARITY_LENS]
+    out, tokens, secs = {}, {}, {}
+    for key, m in models.items():
+        t0 = time.perf_counter()
+        res = {"logits": m(toks), "hidden": m(toks, return_hidden=True)}
+        res["prefill"], caches, res["prefill_hidden"] = m.prefill(toks[:, :s_pre],
+                                                                   with_hidden=True)
+        caches = m.pad_caches(caches, toks.shape[1])
+        for t in range(s_pre, toks.shape[1]):
+            res[f"decode_{t}"], caches = m.decode_step(toks[:, t : t + 1], t, caches)
+        out[key] = {k: v.float().cpu() for k, v in res.items()}
+        eng = ContinuousBatchingEngine(m, n_slots=2, max_seq=32)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=6))
+        tokens[key] = {u: r.output for u, r in eng.run().items()}
+        secs[key] = time.perf_counter() - t0
+    errs = {k: float((out["gpu"][k] - out["cpu"][k]).abs().max()) for k in out["cpu"]}
+    mismatches = []
+    for uid, p in enumerate(prompts):
+        a, b = tokens["cpu"][uid], tokens["gpu"][uid]
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if first is not None:
+            top2 = greedy_logits(models["cpu"], p, first, 32)[first].topk(2).values
+            mismatches.append({"uid": uid, "step": first,
+                               "top1_lead": float(top2[0] - top2[1])})
+    emit({"phase": "lm_device_parity", "arch": cfg.name, "max_abs_err": errs,
+          "rtol": LM_PARITY_RTOL, "atol": LM_PARITY_ATOL,
+          "scheduler_tokens_equal": tokens["cpu"] == tokens["gpu"],
+          "scheduler_mismatches": mismatches, "cpu_s": secs["cpu"],
+          "gpu_s": secs["gpu"]})
+    for k in out["cpu"]:
+        torch.testing.assert_close(out["gpu"][k], out["cpu"][k], rtol=LM_PARITY_RTOL,
+                                   atol=LM_PARITY_ATOL, msg=lambda m, k=k: f"{k}: {m}")
+    if any(m["top1_lead"] > LM_DECISIVE_GAP for m in mismatches):
+        raise AssertionError(f"scheduler tokens differ across devices: {mismatches}")
+    if not all(len(o) == 7 for o in tokens["gpu"].values()):
+        raise AssertionError(f"scheduler outputs {tokens['gpu']}")
+
+
+def phase_lm_full_width(torch, seed: int):
+    """gemma3_1b at its published widths in fp32: ``param_count()`` equals
+    the module's parameters; on 2 sequences of 1,024 tokens, a prefill of
+    1,016 (past the 512 window, so the ring compress runs) and 8 decode
+    steps equal the forward pass within 2e-2, argmax equal where decisive."""
+    from repro_torch import configs
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = t0 = time.perf_counter()
+    model = init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (LM_FULL_SEQS, LM_FULL_LEN), generator=g,
+                         device="cuda")
+    t0 = time.perf_counter()
+    full = model(toks)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre, caches = model.prefill(toks[:, :LM_FULL_PREFILL])
+    caches = model.pad_caches(caches, LM_FULL_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    ring = caches[0]  # a local layer: the last 512 positions at pos % 512
+    ring_ok = (ring.k.shape[1] == cfg.pattern[0].window
+               and int(ring.pos.max()) == LM_FULL_PREFILL - 1
+               and int(ring.pos.min()) == LM_FULL_PREFILL - cfg.pattern[0].window)
+    steps, errs, wrong = [], [float((pre - full[:, LM_FULL_PREFILL - 1]).abs().max())], 0
+    wrong += decisive_mismatches(pre, full[:, LM_FULL_PREFILL - 1])
+    for t in range(LM_FULL_PREFILL, LM_FULL_LEN):
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(toks[:, t : t + 1], t, caches)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        errs.append(float((logits - full[:, t]).abs().max()))
+        torch.testing.assert_close(logits, full[:, t], rtol=LM_FULL_TOL, atol=LM_FULL_TOL)
+        wrong += decisive_mismatches(logits, full[:, t])
+    report = {"phase": "lm_full_width", "arch": cfg.name, "dtype": "float32",
+              "param_count": cfg.param_count(), "module_params": n_params,
+              "init_s": init_s, "forward_s": forward_s,
+              "forward_shape": list(full.shape), "prefill_s": prefill_s,
+              "decode_ms_per_step": [s * 1e3 for s in steps],
+              "max_abs_err": errs, "tol": LM_FULL_TOL, "ring_compressed": ring_ok,
+              "decisive_argmax_mismatches": wrong,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "seconds": time.perf_counter() - t_phase}
+    emit(report)
+    if n_params != cfg.param_count():
+        raise AssertionError(f"module parameters {n_params} != param_count() "
+                             f"{cfg.param_count()}")
+    if not ring_ok or wrong:
+        raise AssertionError(f"lm_full_width: ring {ring_ok}, {wrong} decisive argmax "
+                             "mismatches")
+    if not torch.isfinite(full).all():
+        raise AssertionError("non-finite logits")
+
+
+def recall_against_exact(torch, ids, hid, parts, k: int, spread=None) -> int:
+    """Hits of ``ids`` (Q, k) among the exact top-k by matmul over the live
+    keys: ``parts`` is [(keys, their ids, alive mask)].  ``spread``, a
+    list, gets each query's exact k-th over 1st squared distance."""
+    d2s, gids = [], []
+    for keys, kid, alive in parts:
+        d2 = (keys * keys).sum(1)[None, :] - 2.0 * (hid @ keys.T) \
+            + (hid * hid).sum(1)[:, None]
+        d2s.append(d2.masked_fill(~alive[None, :], torch.inf))
+        gids.append(kid)
+    d2, gids = torch.cat(d2s, 1), torch.cat(gids)
+    top = d2.topk(k, dim=1, largest=False)
+    if spread is not None:
+        spread.extend((top.values[:, -1] / top.values[:, 0]).tolist())
+    truth = gids[top.indices]
+    return int((ids.long()[:, :, None] == truth[:, None, :]).any(-1).sum())
+
+
+def phase_knn_lm(torch, seed: int) -> tuple:
+    """The kNN-LM decode path at full width, through the serve driver's
+    functions: gemma3_1b (bf16) builds a datastore of the hidden states of
+    512 sequences of 2,049 tokens (1,048,576 keys x 1152, stored points),
+    then decodes 16 prompts of 1,024 tokens for 64 steps with a lookup a
+    step and churn every 4, and 16 more through ``serving_engine`` with a
+    ``MaintenancePolicy`` and a forced ``compact()``.  On every step the
+    kernel route equals the plain route, the mixed rows sum to 1, and
+    recall@8 is read against exact top-8 over the live keys.  Returns the
+    launches by path and what the later phases reuse."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import MaintenancePolicy
+
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    model = init_params(cfg, seed, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    corpus = torch.randint(0, cfg.vocab_size, KNN_CORPUS, generator=g, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, KNN_PROMPTS, generator=g, device="cuda")
+    launches = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    keys, vals = serve.datastore_keys(model, corpus, batch=KNN_FORWARD_BATCH)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    del corpus
+    t0 = time.perf_counter()
+    store = serve.store_from_keys(keys, vals, store_points=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches["knn_lm_build"] = read_launches(torch)
+    require_launched("knn_lm build", launches["knn_lm_build"], ["pack_bits"])
+    n = keys.shape[0]
+    base_ids = torch.arange(n, device="cuda")
+    appended, hids, spread = [], [], []
+    st = {"hits": 0, "queries": 0, "mix_err": 0.0, "check_s": 0.0}
+
+    def on_step(t, hid, logp):
+        def check():
+            t0 = time.perf_counter()
+            mut = store._impl
+            ids, _ = store.lookup(hid, serve.SEARCH)
+            alive = torch.from_numpy(mut._alive.copy()).to(keys.device)
+            parts = [(keys, base_ids, alive[:n])]
+            if appended:
+                app_ids = torch.cat([a[1] for a in appended])
+                parts.append((torch.cat([a[0] for a in appended]), app_ids,
+                              alive[app_ids]))
+            st["hits"] += recall_against_exact(torch, ids, hid, parts, serve.SEARCH.k,
+                                               spread)
+            st["queries"] += hid.shape[0]
+            st["mix_err"] = max(st["mix_err"],
+                                float((logp.exp().sum(-1) - 1.0).abs().max()))
+            hids.append(hid.clone())
+            if (t - KNN_PROMPTS[1]) % serve.CHURN_EVERY == 0:  # appended next
+                start = mut._next_id
+                appended.append((hid.clone(), torch.arange(
+                    start, start + hid.shape[0], device="cuda")))
+            torch.cuda.synchronize()
+            st["check_s"] += time.perf_counter() - t0
+
+        uncounted(torch, check)
+
+    reset_launches()
+    run = serve.decode(model, prompts, KNN_STEPS, store=store, lam=LM_LAM, churn=True,
+                       on_step=on_step)
+    launches["knn_lm"] = read_launches(torch)
+    require_launched("knn_lm decode", launches["knn_lm"],
+                     ["hamming_rows", "qdist_windows", "pack_bits"])
+    recall = st["hits"] / (st["queries"] * serve.SEARCH.k)
+
+    def route_check():
+        """Every step's hidden states through the kernel route and the plain
+        route of the store as the loop left it."""
+        q = torch.cat(hids)
+        ids, d2 = store.lookup(q, serve.SEARCH)
+        ids_r, d2_r = store._impl.search(q, serve.SEARCH, backend="ref")
+        torch.testing.assert_close(d2, d2_r, rtol=DIST_RTOL, atol=DIST_ATOL)
+        return {"queries": q.shape[0], "max_abs_dist_diff": float((d2 - d2_r).abs().max()),
+                "id_mismatches_within_ties": assert_ids_equal_up_to_ties(
+                    ids_r.cpu(), ids.cpu(), d2_r.cpu())}
+
+    route = uncounted(torch, route_check)
+
+    def lookup_times():
+        out = []
+        for h in hids:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            store.lookup(h, serve.SEARCH)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return out
+
+    lookup_s = uncounted(torch, lookup_times)
+    plain = serve.decode(model, prompts, KNN_ENGINE_STEPS)  # no retrieval
+    uncounted(torch, lambda: phase_profile(
+        torch, lambda: store.lookup(hids[-1], serve.SEARCH), "knn_lm_lookup_profile",
+        cpu_ops=True, queries=hids[-1].shape[0]))
+    _, caches = model.prefill(prompts)
+    caches = model.pad_caches(caches, KNN_PROMPTS[1] + 1)
+    phase_profile(torch, lambda: model.decode_step(plain["tokens"][:, :1], KNN_PROMPTS[1],
+                                                   caches),
+                  "knn_lm_decode_profile", cpu_ops=True, queries=KNN_PROMPTS[0])
+    del caches
+    rep = store.memory_report()
+
+    eng = store.serving_engine(serve.SEARCH, maintenance=MaintenancePolicy(), start=True)
+    reset_launches()
+    run_e = serve.decode(model, prompts, KNN_ENGINE_STEPS, store=store, lam=LM_LAM,
+                         churn=True)
+    t0 = time.perf_counter()
+    store.compact()
+    compact_s = time.perf_counter() - t0
+    eng.stop(drain=True)
+    launches["knn_lm_engine"] = read_launches(torch)
+    require_launched("knn_lm engine", launches["knn_lm_engine"],
+                     ["hamming_rows", "qdist_windows", "pack_bits"])
+    snap = eng.metrics.snapshot()
+    steps_ms = (run["decode_s"] - st["check_s"]) * 1e3 / KNN_STEPS
+    emit({"phase": "knn_lm", "arch": cfg.name, "dtype": cfg.compute_dtype,
+          "datastore_keys": n, "dim": keys.shape[1], "forest":
+          dataclasses.asdict(serve.retrieval_forest(cfg.d_model)),
+          "search": dataclasses.asdict(serve.SEARCH), "lam": LM_LAM,
+          "forward_s": forward_s, "build_s": build_s,
+          "prefill_ms": run["prefill_s"] * 1e3, "batch": KNN_PROMPTS[0],
+          "ms_per_step_with_retrieval": steps_ms,
+          "ms_per_step_without_retrieval": plain["decode_s"] * 1e3 / KNN_ENGINE_STEPS,
+          "lookup_ms_per_step": float(np.median(lookup_s)) * 1e3,
+          "lookup_ms_per_step_max": max(lookup_s) * 1e3,
+          "checks_s": st["check_s"], "recall_at_8": recall,
+          "exact_d2_8th_over_1st_median": float(np.median(spread)), "route": route,
+          "mix_row_sum_max_err": st["mix_err"], "memory": rep,
+          "engine": {"ms_per_step": run_e["decode_s"] * 1e3 / KNN_ENGINE_STEPS,
+                     "compact_s": compact_s, "epoch": eng.epoch,
+                     "counters": {k: snap["counters"][k] for k in
+                                  ("batches", "rows_searched", "swaps",
+                                   "maintenance_runs")},
+                     "latency_ms": snap["latency_ms"]},
+          "launches": {k: launches[k] for k in ("knn_lm", "knn_lm_engine")},
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "seconds": time.perf_counter() - t_phase})
+    if st["mix_err"] > KNN_MIX_TOL:
+        raise AssertionError(f"mixed rows sum to 1 within {st['mix_err']}")
+    if eng.epoch < 1 or store._impl.n_segments != 1:
+        raise AssertionError("the forced compact() through the engine did not swap")
+    tokens = torch.cat([run["tokens"], run_e["tokens"]], 1)
+    if tokens.shape != (KNN_PROMPTS[0], KNN_STEPS + KNN_ENGINE_STEPS + 2):
+        raise AssertionError(f"decoded tokens {tuple(tokens.shape)}")
+    from repro_torch.serve.retrieval import RetrievalStore
+
+    served = RetrievalStore(index=store._impl)  # the compacted index, no engine
+    del store, eng
+    ctx = {"model": model, "keys": keys, "vals": vals, "prompts": prompts,
+           "store": served, "hids": hids, "recall": recall, "route": route}
+    return launches, ctx
+
+
+def phase_knn_lm_sharded(torch, ctx: dict) -> dict:
+    """The same keys in ``RetrievalStore(shards=4)``: 16 decode steps of
+    lookups (recall@8 beside the single store's); a store of the first
+    KNN_BUNDLE_ROWS keys with writes saves and loads on 4 shards bit for
+    bit, and one without writes loads on 1 shard equal to the single
+    mutable layout; ``RetrievalEngine`` over a static 4-shard
+    ``ShardedHilbertIndex`` of all the keys answers in batches bit-equal
+    to a direct search."""
+    import numpy as np
+
+    from repro_torch.index import IndexConfig, ShardedHilbertIndex
+    from repro_torch.launch import serve
+    from repro_torch.serve import RetrievalEngine
+    from repro_torch.serve.retrieval import RetrievalStore
+
+    model, keys, vals, prompts = (ctx[k] for k in ("model", "keys", "vals", "prompts"))
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    launches = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    store = serve.store_from_keys(keys, vals, shards=SHARDS, store_points=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches["knn_lm_sharded_build"] = read_launches(torch)
+    require_launched("knn_lm sharded build", launches["knn_lm_sharded_build"],
+                     ["pack_bits"])
+    n = keys.shape[0]
+    parts = [(keys, torch.arange(n, device="cuda"),
+              torch.ones(n, dtype=torch.bool, device="cuda"))]
+    # phase knn_lm's compacted store: one segment of its live rows
+    single = ctx["store"]
+    seg = single.index.segments[0]
+    single_parts = [(seg.index.points, torch.from_numpy(seg.ids).to(keys.device).long(),
+                     torch.from_numpy(single.index._alive[seg.ids]).to(keys.device))]
+    st = {"hits": 0, "single_hits": 0, "queries": 0}
+    spread = []
+
+    def on_step(t, hid, logp):
+        def check():
+            ids, _ = store.lookup(hid, serve.SEARCH)
+            st["hits"] += recall_against_exact(torch, ids, hid, parts, serve.SEARCH.k,
+                                               spread)
+            ids, _ = single.lookup(hid, serve.SEARCH)
+            st["single_hits"] += recall_against_exact(torch, ids, hid, single_parts,
+                                                      serve.SEARCH.k)
+            st["queries"] += hid.shape[0]
+        uncounted(torch, check)
+
+    reset_launches()
+    run = serve.decode(model, prompts, KNN_SHARDED_STEPS, store=store, lam=LM_LAM,
+                       on_step=on_step)
+    launches["knn_lm_sharded"] = read_launches(torch)
+    require_launched("knn_lm sharded decode", launches["knn_lm_sharded"],
+                     ["hamming_rows", "qdist_windows", "pack_bits"])
+    recall = st["hits"] / (st["queries"] * serve.SEARCH.k)
+    report = {"phase": "knn_lm_sharded", "shards": SHARDS, "datastore_keys": n,
+              "build_s": build_s, "recall_at_8": recall,
+              "single_store_recall_at_8_same_queries":
+                  st["single_hits"] / (st["queries"] * serve.SEARCH.k),
+              "single_store_recall_at_8_knn_lm": ctx["recall"],
+              "exact_d2_8th_over_1st_median": float(np.median(spread)),
+              "ms_per_step_with_retrieval": run["decode_s"] * 1e3 / KNN_SHARDED_STEPS,
+              "memory": store.memory_report()}
+    del store
+
+    # Bundles, on the first KNN_BUNDLE_ROWS keys.
+    r = KNN_BUNDLE_ROWS
+    q = torch.cat(ctx["hids"])
+    path = os.path.join(ROOT, "build", "smoke_knn_store")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        small = serve.store_from_keys(keys[:r], vals[:r], shards=SHARDS,
+                                      store_points=True)
+        t0 = time.perf_counter()
+        small.save(path)
+        save_s = time.perf_counter() - t0
+        one = RetrievalStore.load(path, n_shards=1)
+        single = serve.store_from_keys(keys[:r], vals[:r], store_points=True)
+        degrade_equal = (
+            all(torch.equal(a, b) for a, b in zip(one.lookup(q, serve.SEARCH),
+                                                   single.lookup(q, serve.SEARCH)))
+            and not lsm_differ(
+                {k: v for k, v in lsm_state(one.index).items() if "n_valid" not in k},
+                {k: v for k, v in lsm_state(single.index).items() if "n_valid" not in k}))
+        del one, single
+        small.append(ctx["hids"][0], torch.zeros(ctx["hids"][0].shape[0],
+                                                 dtype=torch.int32, device="cuda"))
+        small.delete(np.arange(0, r, 97))
+        small.save(path)
+        t0 = time.perf_counter()
+        back = RetrievalStore.load(path)
+        load_s = time.perf_counter() - t0
+        round_trip_equal = (
+            not lsm_differ(sharded_lsm_state(back.sharded),
+                           sharded_lsm_state(small.sharded))
+            and all(torch.equal(a, b) for a, b in zip(back.lookup(q, serve.SEARCH),
+                                                       small.lookup(q, serve.SEARCH))))
+        del back, small
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    report.update({"bundle_rows": r, "save_s": save_s, "load_s": load_s,
+                   "round_trip_bit_equal": round_trip_equal,
+                   "load_on_one_shard_equal_to_single": degrade_equal})
+
+    # The engine over a static sharded index of all the keys.
+    t0 = time.perf_counter()
+    static = ShardedHilbertIndex.build(
+        keys, IndexConfig(forest=serve.retrieval_forest(keys.shape[1]),
+                          store_points=False),
+        n_shards=SHARDS, device="cuda")
+    static_build_s = time.perf_counter() - t0
+    want = uncounted(torch, lambda: static.search(q, serve.SEARCH))
+    eng = RetrievalEngine(static, serve.SEARCH, max_batch=64)
+    cuts = [0, 3, 40, 41, 128, 200, q.shape[0]]
+    reset_launches()
+    tickets = [eng.submit(q[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+    while eng.step():
+        pass
+    launches["knn_lm_static_engine"] = read_launches(torch)
+    got = [np.concatenate([t.result(0)[i] for t in tickets]) for i in (0, 1)]
+    engine_equal = (np.array_equal(got[0], want[0].cpu().numpy())
+                    and np.array_equal(got[1], want[1].cpu().numpy()))
+    report.update({"static_engine": {"build_s": static_build_s, "queries": q.shape[0],
+                                     "batches": eng.metrics.counter("batches"),
+                                     "bit_equal_to_direct_search": engine_equal},
+                   "launches": launches,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "seconds": time.perf_counter() - t_phase})
+    emit(report)
+    del eng, static
+    if not (round_trip_equal and degrade_equal and engine_equal):
+        raise AssertionError(f"knn_lm_sharded: round trip {round_trip_equal}, one shard "
+                             f"{degrade_equal}, static engine {engine_equal}")
+    require_launched("knn_lm static engine", launches["knn_lm_static_engine"],
+                     ["hamming_rows", "qdist_windows", "pack_bits"])
+    return launches
+
+
+def phase_scheduler(torch, ctx: dict, seed: int) -> dict:
+    """``ContinuousBatchingEngine`` at full width (bf16): 8 slots, max_seq
+    2,048, 24 seeded requests with prompts of 64-1,024 tokens and 32 new
+    tokens each, sampled through ``knn_lm_mix`` over phase knn_lm's
+    (compacted) store; every request ends with 33 tokens."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.serve.scheduler import (ContinuousBatchingEngine, Request,
+                                             knn_lm_sampler)
+
+    model = ctx["model"]
+    rng = np.random.default_rng(seed + 2)
+    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab_size,
+                                               int(rng.integers(SCHED_PROMPT[0],
+                                                                SCHED_PROMPT[1] + 1))),
+                    max_new_tokens=SCHED_NEW) for i in range(SCHED_REQUESTS)]
+    eng = ContinuousBatchingEngine(
+        model, n_slots=SCHED_SLOTS, max_seq=SCHED_MAX_SEQ,
+        sample=knn_lm_sampler(ctx["store"], serve.SEARCH, lam=LM_LAM))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run(max_steps=10 * SCHED_REQUESTS * SCHED_NEW)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(torch)
+    lens = sorted(len(r.output) for r in done.values())
+    tokens = sum(lens)
+    emit({"phase": "scheduler", "slots": SCHED_SLOTS, "max_seq": SCHED_MAX_SEQ,
+          "requests": SCHED_REQUESTS, "prompt_tokens": sum(len(r.prompt) for r in reqs),
+          "new_tokens_each": SCHED_NEW, "output_lens": sorted(set(lens)),
+          "tokens": tokens, "seconds": secs, "tokens_per_s": tokens / secs,
+          "steps": eng.steps, "launches": launches,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if len(done) != SCHED_REQUESTS or lens != [SCHED_NEW + 1] * SCHED_REQUESTS:
+        raise AssertionError(f"scheduler finished {len(done)} requests, lengths {lens}")
+    require_launched("scheduler", launches, ["hamming_rows", "qdist_windows",
+                                             "pack_bits"])
+    return {"scheduler": launches}
+
+
+def phase_lm(torch, seed: int, kernels: list) -> dict:
+    """Phases lm_device_parity, lm_full_width, knn_lm, knn_lm_sharded and
+    scheduler; returns their launches by path."""
+    phase_lm_device_parity(torch, seed)
+    torch.cuda.empty_cache()
+    phase_lm_full_width(torch, seed)
+    torch.cuda.empty_cache()
+    launches, ctx = phase_knn_lm(torch, seed)
+    for row in kernels:
+        if row["name"] in ("hamming_rows", "qdist_windows", "pack_bits"):
+            row["knn_lm_route"] = ctx["route"]
+    torch.cuda.empty_cache()
+    launches.update(phase_knn_lm_sharded(torch, ctx))
+    torch.cuda.empty_cache()
+    launches.update(phase_scheduler(torch, ctx, seed))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=3_000_000, help="corpus rows")
@@ -2886,7 +3475,7 @@ def main(argv=None) -> int:
                     "fused_bound_by": first["fused_bound_by"]})
     launches.update(main_launches)
     torch.cuda.empty_cache()
-    launches.update(phase_table1(torch, points, queries, truth))
+    launches.update(phase_table1(torch, points, queries))
     torch.cuda.empty_cache()
     launches.update(phase_sharded(torch, cfg, params, points, queries, truth, recall,
                                   args.recall_floor))
@@ -2914,6 +3503,9 @@ def main(argv=None) -> int:
     sharded_task2_launches, halo = phase_sharded_task2(torch, points, graph_params,
                                                        *task2_recall)
     launches.update(sharded_task2_launches)
+    del points
+    torch.cuda.empty_cache()
+    launches.update(phase_lm(torch, args.seed, kernels))
     next(r for r in kernels if r["name"] == "hamming_rows")["sharded_halo"] = {
         k: halo[k] for k in ("rows_a_shard", "k1", "distances_compared", "max_abs_err")}
     for row in kernels:

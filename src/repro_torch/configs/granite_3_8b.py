@@ -1,0 +1,35 @@
+"""granite-3-8b [dense]: GQA. 40L d=4096 32H kv=8 ff=12800 v=49155."""
+
+from repro_torch.models.config import LayerSpec, ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-8b",
+    family="dense",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=12800,
+    vocab_size=49155,
+    pattern=(LayerSpec(),),
+    act="silu",
+    norm="rmsnorm",
+    tie_embeddings=True,
+)
+
+SMOKE = ModelConfig(
+    name="granite-3-8b-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    d_ff=128,
+    vocab_size=512,
+    pattern=(LayerSpec(),),
+    act="silu",
+    norm="rmsnorm",
+    tie_embeddings=True,
+)

@@ -1,8 +1,8 @@
 """repro_torch.serve — the serving layer of the port (``repro.serve``):
 EDF batching, the reader-writer lock, engine metrics, pipelined search,
-the out-of-process compactor, :class:`RetrievalEngine` and the kNN-LM
-:class:`RetrievalStore`.  The LM decode scheduler waits for the port of
-the model zoo."""
+the out-of-process compactor, :class:`RetrievalEngine`, the kNN-LM
+:class:`RetrievalStore` and the LM decode scheduler
+(:class:`ContinuousBatchingEngine`)."""
 
 from repro_torch.serve.batching import (  # noqa: F401
     BatchPlan,
@@ -31,3 +31,8 @@ from repro_torch.serve.metrics import (  # noqa: F401
 from repro_torch.serve.pipeline import pipelined_search  # noqa: F401
 from repro_torch.serve.retrieval import RetrievalStore, knn_lm_mix  # noqa: F401
 from repro_torch.serve.rwlock import ReadWriteLock  # noqa: F401
+from repro_torch.serve.scheduler import (  # noqa: F401
+    ContinuousBatchingEngine,
+    Request,
+    knn_lm_sampler,
+)

@@ -131,11 +131,10 @@ def run_script(build, data, on_stage) -> None:
     on_stage("compact", idx)
 
 
-def main(out_dir: str) -> None:
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
-    ).strip()
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+def patch_repro_host_reads() -> None:
+    """Replace the three host reads of ``repro.index.sharded_mutable`` that
+    index a sharded array by shard with reads of the whole array, then
+    shard ``s`` (the same values).  For a process with several devices."""
     import dataclasses
     import hashlib
 
@@ -143,13 +142,8 @@ def main(out_dir: str) -> None:
     import jax.numpy as jnp
 
     from repro.core.forest import HilbertForest
-    from repro.data import ann_datasets
     from repro.index import HilbertIndex
-    from repro.index import (ForestConfig, IndexConfig, SearchParams,
-                             ShardedHilbertIndex)
     from repro.index import sharded_mutable as sm
-    from repro.launch.mesh import data_mesh
-    from repro.obs.recall import live_points
 
     def owned_rows(self, seg, s):
         if seg.points is None:
@@ -184,6 +178,23 @@ def main(out_dir: str) -> None:
     sm.ShardedMutableHilbertIndex._owned_rows = owned_rows
     sm._seg_shard_uid = seg_shard_uid
     sm.shard_index_from_stack = shard_index_from_stack
+
+
+def main(out_dir: str) -> None:
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
+    ).strip()
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    patch_repro_host_reads()
+    import jax
+    import jax.numpy as jnp
+
+    from repro.data import ann_datasets
+    from repro.index import (ForestConfig, IndexConfig, SearchParams,
+                             ShardedHilbertIndex)
+    from repro.index import sharded_mutable as sm
+    from repro.launch.mesh import data_mesh
+    from repro.obs.recall import live_points
 
     assert len(jax.devices()) == SHARDS, jax.devices()
     mesh = data_mesh(SHARDS)

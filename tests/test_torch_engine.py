@@ -584,6 +584,40 @@ def test_warm_search_leaves_the_shadow_unrewritten(data, tmp_path):
     assert_within_contract(*jeng.search(queries), *teng.search(queries))
 
 
+# -- the engine over the static sharded layout (4 logical shards) -----------------
+
+
+@pytest.mark.parametrize("merge", ["tree", "gather"])
+def test_static_sharded_step_mode_batches_equal_a_direct_search(data, merge):
+    """``repro``'s ``scripts/serving_check.py`` section [1] on the port:
+    ragged submissions over a ``ShardedHilbertIndex`` of 4 logical shards,
+    micro-batched and split back, equal a direct search bit for bit; the
+    index serves read-only."""
+    import dataclasses
+
+    from repro_torch.index import ShardedHilbertIndex
+    from _torch_parity import TCFG
+
+    d, queries = data
+    idx = ShardedHilbertIndex.build(d, dataclasses.replace(TCFG, shards=4, merge=merge),
+                                    n_shards=4, device="cpu")
+    direct_i, direct_d = idx.search(queries, TSP)
+    eng = tengine.RetrievalEngine(idx, TSP, max_batch=16)
+    cuts = [0, 5, 8, 20, 21, 37, Q]
+    tickets = [eng.submit(queries[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+    while eng.step():
+        pass
+    np.testing.assert_array_equal(np.concatenate([t.ids for t in tickets]), host(direct_i))
+    np.testing.assert_array_equal(np.concatenate([t.dists for t in tickets]),
+                                  host(direct_d))
+    assert eng.metrics.counter("batches") < len(tickets)
+    ids, dists = eng.search(queries[:7])
+    np.testing.assert_array_equal(ids, host(direct_i[:7]))
+    assert eng.maintain_once(force=True) is False
+    with pytest.raises(TypeError, match="immutable"):
+        eng.insert(d[:4])
+
+
 # -- the engine over the sharded-mutable layout (4 logical shards) -----------------
 
 
