@@ -103,15 +103,34 @@ equal those on the CPU, then drives the paths at full width on
   and decodes 16 prompts of 1,024 tokens for 64 steps with a lookup a
   step and churn every 4 (the kernel route equal to the plain route on
   every step's hidden states, mixed rows summing to 1, recall@8 against
-  exact top-8 on every step), then 16
+  exact top-8 on every 4th step), then 16
   steps through ``serving_engine`` and a forced ``compact()``; phase
-  ``knn_lm_sharded`` builds the same keys on 4 logical shards, decodes 16
+  ``knn_lm_sharded`` builds the same keys on 4 logical shards, decodes 8
   steps, saves and loads a store of the first 131,072 keys on 4 shards
   and on 1, and serves a static 4-shard index through
   ``RetrievalEngine`` (bit-equal to a direct search); phase
   ``scheduler`` runs ``ContinuousBatchingEngine`` (8 slots, 24 requests
   of 64-1,024 prompt tokens, 32 new each) sampling through
   ``knn_lm_mix``.
+
+* Training and MoE, last (``repro_torch.train``, ``repro_torch.launch.train``;
+  no kernel of the port is on this path): phase ``train_device_parity``
+  holds 3 train steps of 2 microbatches of the gemma3_1b and
+  granite_moe_1b smoke configs (fp32) on the card to the CPU (losses and
+  grad norms within 1e-5 relative, parameters and moments within 1e-5 /
+  1e-6); phase ``train_full_width`` trains gemma3_1b at its published
+  widths in bf16 with remat "minimal" for 12 steps of 8 x 1,024 tokens (ms
+  a step, tokens/s, the model FLOPs over the dense bf16 peak, peak memory;
+  the loss must fall); phase ``moe_full_width`` runs granite_moe_1b at its
+  published widths: a fp32 forward of 2 x 1,024 tokens with prefill and
+  decode against it at a drop-free capacity, 8 bf16 train steps at the
+  published capacity 1.25, and the scheduler serving the trained weights.
+  Beside these three, phase ``train_resume`` trains gemma3_1b's widths at
+  2 layers in a child process under deterministic algorithms, saves its
+  state with ``AsyncCheckpointer`` (4.3 GB), restores it and requires the
+  resumed losses bit-equal, and phase ``train_resume_cli`` runs ``python
+  -m repro_torch.launch.train --smoke`` and resumes it.
+  ``chip_train_profile.py`` profiles a train step of both full-width cells.
 
 Before them, phase ``device_parity_engine`` runs the same engine
 operations on the CPU and on the card at 10,000 rows (step-mode searches,
@@ -142,6 +161,7 @@ WAL tail).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import gc
 import json
@@ -302,12 +322,41 @@ KNN_FORWARD_BATCH = 16  # sequences a forward pass of the datastore build
 KNN_PROMPTS = (16, 1024)
 KNN_STEPS = 64  # decode steps with lookups and churn every 4
 KNN_ENGINE_STEPS = 16  # decode steps through serving_engine
-KNN_SHARDED_STEPS = 16
+KNN_SHARDED_STEPS = 8  # a cut of depth from 16 (1.2 s a step)
+KNN_RECALL_EVERY = 4  # decode steps between recall checks (a cut of depth from 1)
 KNN_BUNDLE_ROWS = 1 << 17  # the sharded store's save/load checks (a cut of depth)
 KNN_MIX_TOL = 1e-3  # each row of the mixed distribution sums to 1
 LM_LAM = 0.25
 SCHED_SLOTS, SCHED_MAX_SEQ = 8, 2048
 SCHED_REQUESTS, SCHED_PROMPT, SCHED_NEW = 24, (64, 1024), 32
+
+# Training and MoE (phases train_device_parity, train_full_width,
+# moe_full_width, train_resume): gemma3_1b and granite_moe_1b at their
+# published widths with random weights from --seed, repro.launch.train's
+# optimizer settings with 12 / 8 steps, the token pipeline's Zipf + motif
+# stream.
+TRAIN_PARITY_ARCHS = ("gemma3_1b", "granite_moe_1b")  # smoke configs, fp32
+TRAIN_PARITY_STEPS, TRAIN_PARITY_BATCH = 3, (4, 32)
+TRAIN_PARITY_RTOL = 1e-5  # losses and grad_norm, CPU vs card, TF32 off
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 1e-5, 1e-6  # params, m and v after the steps
+# AdamW divides m by sqrt(v): an entry whose gradient sums to about zero
+# (rounding noise, different on each device) moves by up to lr times an O(1)
+# factor (an H100 against the CPU at lr 1e-3: 2.1e-5 on 2 of gemma3's
+# 32,768 embedding entries), so the parity run's lr keeps that under
+# TRAIN_PARAM_ATOL.
+TRAIN_PARITY_LR = 1e-5
+TRAIN_BATCH = (8, 1024)  # sequences x tokens a step (past gemma3's 512 window)
+TRAIN_MICRO = 2
+TRAIN_LR = 1e-3
+TRAIN_FULL_STEPS = 12
+MOE_ARCH = "granite_moe_1b"
+MOE_FULL_TOL = (1e-4, 1e-5)  # prefill / decode vs forward, fp32, drop-free capacity
+MOE_TRAIN_STEPS = 8
+MOE_SCHED_SLOTS, MOE_SCHED_MAX_SEQ = 4, 512
+MOE_SCHED_REQUESTS, MOE_SCHED_PROMPT, MOE_SCHED_NEW = 8, (32, 256), 8
+RESUME_LAYERS = 2  # gemma3_1b's widths, 2 of its 26 layers: a 4.3 GB state file
+RESUME_AT, RESUME_STEPS = 2, 4
+H100_BF16_DENSE_FLOPS = 989e12  # NVIDIA H100 SXM data sheet, dense bf16, 700 W
 
 
 def kernel_fns():
@@ -862,10 +911,10 @@ def device_time(prof, top: int):
     return sum(r[0] for r in kernels), fmt(kernels), fmt(ops), copies
 
 
-def phase_profile(torch, search, phase: str, *, cpu_ops: bool, queries: int,
-                  top: int = 12):
-    """Device time by kernel over one warm ``search()``, its host<->device
-    copies, and the device's busy share.
+def phase_profile(torch, search, phase: str, *, cpu_ops: bool, top: int = 12, **fields):
+    """Device time by kernel over one warm ``search()`` (or any call), its
+    host<->device copies, and the device's busy share; ``fields`` (the
+    queries, the tokens) go into the phase's line.
 
     The profiler's host overhead lengthens the wall time, so the busy share
     read here is a lower bound, and it is lower with ``cpu_ops``: that also
@@ -884,7 +933,7 @@ def phase_profile(torch, search, phase: str, *, cpu_ops: bool, queries: int,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_ms, kernels, ops, copies = device_time(prof, top)
-    emit({"phase": phase, "queries": queries, "wall_ms": wall_ms, "device_ms": device_ms,
+    emit({"phase": phase, **fields, "wall_ms": wall_ms, "device_ms": device_ms,
           "busy_share": device_ms / wall_ms if device_ms else None,
           "copies": copies, "top_kernels": kernels, "top_ops": ops,
           "profile_s": time.perf_counter() - t0})
@@ -3088,16 +3137,17 @@ def phase_knn_lm(torch, seed: int) -> tuple:
         def check():
             t0 = time.perf_counter()
             mut = store._impl
-            ids, _ = store.lookup(hid, serve.SEARCH)
-            alive = torch.from_numpy(mut._alive.copy()).to(keys.device)
-            parts = [(keys, base_ids, alive[:n])]
-            if appended:
-                app_ids = torch.cat([a[1] for a in appended])
-                parts.append((torch.cat([a[0] for a in appended]), app_ids,
-                              alive[app_ids]))
-            st["hits"] += recall_against_exact(torch, ids, hid, parts, serve.SEARCH.k,
-                                               spread)
-            st["queries"] += hid.shape[0]
+            if (t - KNN_PROMPTS[1]) % KNN_RECALL_EVERY == 0:
+                ids, _ = store.lookup(hid, serve.SEARCH)
+                alive = torch.from_numpy(mut._alive.copy()).to(keys.device)
+                parts = [(keys, base_ids, alive[:n])]
+                if appended:
+                    app_ids = torch.cat([a[1] for a in appended])
+                    parts.append((torch.cat([a[0] for a in appended]), app_ids,
+                                  alive[app_ids]))
+                st["hits"] += recall_against_exact(torch, ids, hid, parts,
+                                                   serve.SEARCH.k, spread)
+                st["queries"] += hid.shape[0]
             st["mix_err"] = max(st["mix_err"],
                                 float((logp.exp().sum(-1) - 1.0).abs().max()))
             hids.append(hid.clone())
@@ -3388,6 +3438,375 @@ def phase_scheduler(torch, ctx: dict, seed: int) -> dict:
     return {"scheduler": launches}
 
 
+def train_states_equal(torch, a: dict, b: dict, rtol: float, atol: float) -> dict:
+    """Max abs difference of two train states' parameters and moments (on
+    the CPU), each held within rtol / atol."""
+    trees = {"params": (dict(a["params"].named_parameters()),
+                        dict(b["params"].named_parameters())),
+             "m": (a["opt"]["m"], b["opt"]["m"]), "v": (a["opt"]["v"], b["opt"]["v"])}
+    worst = {}
+    for key, (ta, tb) in trees.items():
+        worst[key] = 0.0
+        for name, x in ta.items():
+            x, y = x.detach().float().cpu(), tb[name].detach().float().cpu()
+            worst[key] = max(worst[key], float((x - y).abs().max()))
+            torch.testing.assert_close(x, y, rtol=rtol, atol=atol,
+                                       msg=lambda m, k=f"{key} {name}": f"{k}: {m}")
+    return worst
+
+
+def phase_train_device_parity(torch, seed: int):
+    """The gemma3_1b and granite_moe_1b smoke configs in fp32 (TF32 off):
+    the same train state on the CPU and on the card (carried across by
+    ``convert``), 3 steps of 2 microbatches each: losses and grad norms
+    within 1e-5 relative, parameters and moments after the steps within
+    1e-5 / 1e-6 (at TRAIN_PARITY_LR)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.convert import train_state_from_jax, train_state_to_jax
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                                  compute_dtype="float32")
+        tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(
+            lr=TRAIN_PARITY_LR, warmup_steps=1, total_steps=TRAIN_PARITY_STEPS))
+        pipe = TokenPipeline(DataConfig(cfg.vocab_size, *TRAIN_PARITY_BATCH, seed=seed))
+        states = {"cpu": init_train_state(cfg, tcfg, seed, device="cpu")}
+        states["gpu"] = train_state_from_jax(cfg, tcfg, train_state_to_jax(cfg, states["cpu"]),
+                                             device="cuda")
+        step = make_train_step(cfg, tcfg)
+        metrics = {"cpu": [], "gpu": []}
+        for dev, torch_dev in (("cpu", "cpu"), ("gpu", "cuda")):
+            for s in range(TRAIN_PARITY_STEPS):
+                states[dev], m = step(states[dev], pipe.torch_batch(s, torch_dev))
+                metrics[dev].append({k: float(v) for k, v in m.items()})
+        rel = {k: max(abs(g[k] - c[k]) / abs(c[k]) for c, g in zip(metrics["cpu"],
+                                                                   metrics["gpu"]))
+               for k in ("loss", "grad_norm")}
+        report = {"phase": "train_device_parity", "arch": cfg.name, "steps": TRAIN_PARITY_STEPS,
+                  "microbatches": TRAIN_MICRO,
+                  "losses": {d: [m["loss"] for m in ms] for d, ms in metrics.items()},
+                  "lr": TRAIN_PARITY_LR, "max_rel_err": rel, "rtol": TRAIN_PARITY_RTOL}
+        try:
+            report["max_abs_err"] = train_states_equal(
+                torch, states["gpu"], states["cpu"], TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL)
+        finally:
+            emit(report)
+        if max(rel.values()) > TRAIN_PARITY_RTOL:
+            raise AssertionError(f"train_device_parity {arch}: {rel}")
+
+
+def attention_flops(cfg, seq: int) -> int:
+    """Score and value products of one sequence's causal attention, forward
+    (2 x 2 x pairs x heads x head_dim); a local layer's query sees at most
+    ``window`` keys."""
+    from repro_torch.models.model import layer_specs
+
+    pairs = 0
+    for spec in layer_specs(cfg):
+        w = spec.window if spec.window > 0 else seq
+        pairs += sum(min(q + 1, w) for q in range(seq))
+    return 4 * pairs * cfg.n_heads * cfg.head_dim
+
+
+def train_steps(torch, cfg, tcfg, seed: int, steps: int, state=None, start: int = 0
+                ) -> dict:
+    """Train steps ``start`` .. ``steps - 1`` on the card from
+    ``init_train_state`` (or ``state``): losses, grad norms and host ms a
+    synchronized step."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.train import init_train_state, make_train_step
+
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, *TRAIN_BATCH, seed=seed))
+    if state is None:
+        state = init_train_state(cfg, tcfg, seed, device="cuda")
+    step = make_train_step(cfg, tcfg)
+    out = {"losses": [], "grad_norms": [], "ms": []}
+    for s in range(start, steps):
+        batch = pipe.torch_batch(s, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out["state"], out["step"], out["pipe"] = state, step, pipe
+    return out
+
+
+def check_losses(name: str, losses: list) -> None:
+    import math
+
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+
+
+def phase_train_full_width(torch, seed: int):
+    """gemma3_1b at its published widths, bf16, remat "minimal": 12 steps of
+    8 x 1,024 tokens in 2 microbatches; ms a step, tokens/s, peak memory,
+    the model FLOPs of a step over the card's dense bf16 peak; no NaN, and
+    the last loss below the first."""
+    from repro_torch import configs
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import TrainConfig
+
+    cfg = configs.get_config(LM_ARCH)
+    assert cfg.compute_dtype == "bfloat16" and cfg.remat_policy == "minimal"
+    tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=max(TRAIN_FULL_STEPS // 10, 1),
+        total_steps=TRAIN_FULL_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    run = train_steps(torch, cfg, tcfg, seed, TRAIN_FULL_STEPS)
+    del run["state"]
+    b, s = TRAIN_BATCH
+    steady = sorted(run["ms"][2:])[len(run["ms"][2:]) // 2]
+    flops = 6 * cfg.param_count() * b * s + 3 * b * attention_flops(cfg, s)
+    emit({"phase": "train_full_width", "arch": cfg.name, "params": cfg.param_count(),
+          "dtype": cfg.compute_dtype, "remat": cfg.remat_policy, "batch": b, "seq": s,
+          "microbatches": TRAIN_MICRO, "steps": TRAIN_FULL_STEPS,
+          "ms_per_step": run["ms"], "median_ms_after_2": steady,
+          "tokens_per_s": b * s / (steady / 1e3),
+          "first_loss": run["losses"][0], "last_loss": run["losses"][-1],
+          "losses": run["losses"], "grad_norms": run["grad_norms"],
+          "model_flops_per_step": flops,
+          "peak": "989 TFLOP/s dense bf16 (NVIDIA H100 SXM data sheet, 700 W)",
+          "model_flops_utilization": flops / (steady / 1e3) / H100_BF16_DENSE_FLOPS,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "seconds": time.perf_counter() - t_phase})
+    check_losses("train_full_width", run["losses"])
+
+
+def phase_moe_full_width(torch, seed: int):
+    """granite_moe_1b at its published widths: a fp32 forward of 2 x 1,024
+    tokens, and a prefill of 1,016 plus 8 decode steps within 1e-4 / 1e-5
+    of it at a drop-free capacity (E / k: the published 1.25 drops tokens
+    in a prefill by design); 8 bf16 train steps at the published capacity;
+    then the scheduler serving the trained weights."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine, Request
+    from repro_torch.train import TrainConfig
+
+    published = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(published, compute_dtype="float32",
+                              capacity_factor=published.n_experts / published.topk_experts)
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    model = init_params(cfg, seed, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (LM_FULL_SEQS, LM_FULL_LEN), generator=g,
+                         device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = model(toks)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    pre, caches = model.prefill(toks[:, :LM_FULL_PREFILL])
+    caches = model.pad_caches(caches, LM_FULL_LEN)
+    pairs = [(pre, full[:, LM_FULL_PREFILL - 1])]
+    decode_ms = []
+    for t in range(LM_FULL_PREFILL, LM_FULL_LEN):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(toks[:, t : t + 1], t, caches)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        pairs.append((logits, full[:, t]))
+    errs = [float((a - b).abs().max()) for a, b in pairs]
+    close = all(torch.allclose(a, b, rtol=MOE_FULL_TOL[0], atol=MOE_FULL_TOL[1])
+                for a, b in pairs)
+    finite = bool(torch.isfinite(full).all())
+    del model, full, caches, pairs
+    torch.cuda.empty_cache()
+    forward_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=max(MOE_TRAIN_STEPS // 10, 1),
+        total_steps=MOE_TRAIN_STEPS))
+    run = train_steps(torch, published, tcfg, seed, MOE_TRAIN_STEPS)
+    train_gib = torch.cuda.max_memory_allocated() / 2**30
+    trained = run.pop("state")["params"]
+    rng = np.random.default_rng(seed + 3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, published.vocab_size, int(
+        rng.integers(MOE_SCHED_PROMPT[0], MOE_SCHED_PROMPT[1] + 1))),
+        max_new_tokens=MOE_SCHED_NEW) for i in range(MOE_SCHED_REQUESTS)]
+    eng = ContinuousBatchingEngine(trained, n_slots=MOE_SCHED_SLOTS,
+                                   max_seq=MOE_SCHED_MAX_SEQ)
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run(max_steps=10 * MOE_SCHED_REQUESTS * MOE_SCHED_NEW)
+    torch.cuda.synchronize()
+    sched_s = time.perf_counter() - t0
+    lens = sorted(len(r.output) for r in done.values())
+    steady = sorted(run["ms"][2:])[len(run["ms"][2:]) // 2]
+    emit({"phase": "moe_full_width", "arch": cfg.name, "param_count": cfg.param_count(),
+          "module_params": n_params, "active_params": cfg.active_param_count(),
+          "forward": {"dtype": "float32", "capacity_factor": cfg.capacity_factor,
+                      "shape": [LM_FULL_SEQS, LM_FULL_LEN], "seconds": forward_s,
+                      "prefill": LM_FULL_PREFILL, "decode_ms": decode_ms,
+                      "max_abs_err": errs, "rtol_atol": MOE_FULL_TOL, "within": close,
+                      "peak_gib": forward_gib},
+          "train": {"dtype": published.compute_dtype,
+                    "capacity_factor": published.capacity_factor,
+                    "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+                    "ms_per_step": run["ms"], "median_ms_after_2": steady,
+                    "tokens_per_s": TRAIN_BATCH[0] * TRAIN_BATCH[1] / (steady / 1e3),
+                    "losses": run["losses"], "peak_gib": train_gib},
+          "scheduler": {"slots": MOE_SCHED_SLOTS, "requests": MOE_SCHED_REQUESTS,
+                        "steps": eng.steps, "tokens": sum(lens), "seconds": sched_s},
+          "seconds": time.perf_counter() - t_phase})
+    if n_params != cfg.param_count():
+        raise AssertionError(f"module parameters {n_params} != param_count() "
+                             f"{cfg.param_count()}")
+    if not finite:
+        raise AssertionError("moe_full_width: non-finite logits")
+    if not close:
+        raise AssertionError(f"moe_full_width: prefill / decode vs forward {errs} beyond "
+                             f"rtol / atol {MOE_FULL_TOL}")
+    check_losses("moe_full_width train", run["losses"])
+    if len(done) != MOE_SCHED_REQUESTS or lens != [MOE_SCHED_NEW + 1] * MOE_SCHED_REQUESTS:
+        raise AssertionError(f"moe scheduler finished {len(done)} requests, lengths {lens}")
+
+
+def train_resume_child(ckpt_dir: str) -> int:
+    """The body of phase train_resume, in its own process (cuBLAS reads
+    CUBLAS_WORKSPACE_CONFIG when it initialises): gemma3_1b's widths cut to
+    2 layers, bf16 moments, deterministic algorithms; run RESUME_STEPS steps
+    saving the state after RESUME_AT with ``AsyncCheckpointer`` (the steps
+    after it update the state in place while the file is written), restore
+    it into a fresh state and run the steps after RESUME_AT again.  Prints
+    one JSON line."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_tree
+    from repro_torch.models.convert import train_state_from_jax, train_state_to_jax
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import TrainConfig
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), n_layers=RESUME_LAYERS)
+    tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=RESUME_STEPS, moment_dtype="bfloat16"))
+    first = train_steps(torch, cfg, tcfg, 0, RESUME_AT)
+    ckpt = AsyncCheckpointer(ckpt_dir)
+    t0 = time.perf_counter()
+    ckpt.save(RESUME_AT, train_state_to_jax(cfg, first["state"]))
+    snapshot_s = time.perf_counter() - t0
+    rest = train_steps(torch, cfg, tcfg, 0, RESUME_STEPS, state=first.pop("state"),
+                       start=RESUME_AT)
+    ckpt.wait()
+    write_s = time.perf_counter() - t0
+    del rest["state"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tree, manifest = restore_tree(ckpt_dir, RESUME_AT)
+    state = train_state_from_jax(cfg, tcfg, tree, device="cuda")
+    restore_s = time.perf_counter() - t0
+    del tree
+    again = train_steps(torch, cfg, tcfg, 0, RESUME_STEPS, state=state, start=RESUME_AT)
+    file_bytes = os.path.getsize(os.path.join(ckpt.last_path, "host0.npz"))
+    emit({"params": cfg.param_count(), "n_layers": cfg.n_layers,
+          "step": int(again["state"]["step"]), "file_bytes": file_bytes,
+          "leaves": len(manifest["leaves"]), "snapshot_s": snapshot_s,
+          "write_s": write_s, "restore_s": restore_s,
+          "losses": first["losses"] + rest["losses"],
+          "resumed_losses": again["losses"], "ms_per_step": first["ms"] + rest["ms"]})
+    return 0
+
+
+def run_logged(cmd, env, timeout: float) -> str:
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"{cmd} exited {out.returncode}: {out.stderr[-3000:]}")
+    return out.stdout
+
+
+def phase_train_resume(torch, in_process_phases) -> None:
+    """``train_resume_child`` in a subprocess under
+    CUBLAS_WORKSPACE_CONFIG=:4096:8: the resumed losses must be bit-equal
+    to the uninterrupted run's.  Meanwhile (phase train_resume_cli) ``python
+    -m repro_torch.launch.train --arch gemma3_1b --smoke --steps 6`` with
+    checkpoints every 3 steps, its last step removed (a run stopped after
+    step 3), and the same command again: it resumes from step 3 and reaches
+    step 5's loss.  Both run beside ``in_process_phases()``: the child's
+    work is mostly host I/O, and the card holds both processes' memory."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    path = os.path.join(ROOT, "build", "smoke_train_resume")
+    cli_path = os.path.join(ROOT, "build", "smoke_train_cli")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+           "--smoke", "--steps", "6", "--ckpt-every", "3", "--ckpt", cli_path]
+
+    def child():
+        out = run_logged([sys.executable, os.path.abspath(__file__),
+                          "--train-resume-child", path], env, 600)
+        return out, time.perf_counter() - t0
+
+    def cli_twice():
+        first = run_logged(cmd, env, 300)
+        shutil.rmtree(os.path.join(cli_path, "step_00000006"))
+        return first, run_logged(cmd, env, 300), time.perf_counter() - t0
+
+    for p in (path, cli_path):
+        shutil.rmtree(p, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            resume, cli = pool.submit(child), pool.submit(cli_twice)
+            in_process_phases()
+            out, child_s = resume.result()
+            first, second, cli_s = cli.result()
+    finally:
+        for p in (path, cli_path):
+            shutil.rmtree(p, ignore_errors=True)
+    res = json.loads(out.strip().splitlines()[-1])
+    equal = res["losses"][RESUME_AT:] == res["resumed_losses"]
+    emit({"phase": "train_resume", **res, "losses_bit_equal": equal, "seconds": child_s})
+    if not equal:
+        raise AssertionError(f"train_resume: {res['losses']} resumed as "
+                             f"{res['resumed_losses']}")
+
+    def last_loss(out):
+        line = next(ln for ln in out.splitlines() if ln.startswith("step     5"))
+        return float(line.split()[3])
+
+    resumed = f"[resume] restored step 3 from {cli_path}" in second
+    emit({"phase": "train_resume_cli", "first": first.strip().splitlines(),
+          "second": second.strip().splitlines(), "resumed_from_3": resumed,
+          "seconds": cli_s})
+    if not resumed or abs(last_loss(first) - last_loss(second)) > 1e-3:
+        raise AssertionError("train_resume_cli: the second run did not resume from "
+                             "step 3 to step 5's loss")
+
+
+def phase_train(torch, seed: int) -> None:
+    """Phases train_device_parity, train_full_width and moe_full_width, with
+    train_resume (+ train_resume_cli) in child processes beside them.  No
+    kernel of the port is on the training path."""
+    def in_process():
+        for phase in (phase_train_device_parity, phase_train_full_width,
+                      phase_moe_full_width):
+            phase(torch, seed)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    phase_train_resume(torch, in_process)
+
+
 def phase_lm(torch, seed: int, kernels: list) -> dict:
     """Phases lm_device_parity, lm_full_width, knn_lm, knn_lm_sharded and
     scheduler; returns their launches by path."""
@@ -3420,6 +3839,7 @@ def main(argv=None) -> int:
     ap.add_argument("--task2-recall-floor", type=float, default=TASK2_RECALL_FLOOR,
                     help="recall@15 the full-width graph must reach (the "
                          "default was set at --n 3000000 --seed 0, 80 orders)")
+    ap.add_argument("--train-resume-child", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -3432,6 +3852,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    if args.train_resume_child:
+        return train_resume_child(args.train_resume_child)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3506,6 +3928,8 @@ def main(argv=None) -> int:
     del points
     torch.cuda.empty_cache()
     launches.update(phase_lm(torch, args.seed, kernels))
+    torch.cuda.empty_cache()
+    phase_train(torch, args.seed)
     next(r for r in kernels if r["name"] == "hamming_rows")["sharded_halo"] = {
         k: halo[k] for k in ("rows_a_shard", "k1", "distances_compared", "max_abs_err")}
     for row in kernels:

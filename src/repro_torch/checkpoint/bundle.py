@@ -13,9 +13,15 @@ them (:func:`repro_torch.testing.faults.fault_point`), and reads are
 corruption-aware: :func:`restore` raises :class:`CorruptBundleError` for
 any unreadable payload and first moves the step aside as
 ``step_%08d.quarantine/``, so resolution falls back to an older step.
-Only flat dicts of arrays are saved, and their leaf keys are jax's
-``keystr`` of a dict, so a state bundle of either package restores in the
-other.
+Index bundles are flat dicts of arrays (:func:`save`, :func:`restore`);
+train states are nested dicts and lists (:class:`AsyncCheckpointer`,
+:func:`restore_tree`).  Either way a leaf's
+key is jax's ``keystr`` of its path (``['opt']['m']['blocks'][0]['mixer']
+['wq']``), so a bundle of either package restores in the other.  bf16
+leaves are written as float32, which holds them exactly (``repro``'s
+restore casts each leaf to its abstract dtype); a bf16 leaf that
+``repro`` wrote through ``ml_dtypes`` loads as a 2-byte void array, which
+the caller views as bfloat16 (``repro_torch.models.convert``).
 """
 
 from __future__ import annotations
@@ -25,15 +31,18 @@ import json
 import os
 import re
 import shutil
+import threading
 import zipfile
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.testing.faults import fault_point
 
 __all__ = [
     "MANIFEST_VERSION",
+    "AsyncCheckpointer",
     "CorruptBundleError",
     "atomic_write_json",
     "latest_step",
@@ -43,6 +52,7 @@ __all__ = [
     "quarantine_step",
     "read_manifest",
     "restore",
+    "restore_tree",
     "save",
     "steps_present",
     "verify_step",
@@ -51,6 +61,7 @@ __all__ = [
 MANIFEST_VERSION = 5
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
+_KEY_RE = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
 
 # What reading a damaged ``.npz`` can raise: a bad CRC or local header
@@ -95,16 +106,14 @@ def _digest(arr: np.ndarray) -> Tuple[str, int]:
     return hashlib.sha256(buf).hexdigest(), len(buf)
 
 
-def save(ckpt_dir: str, step: int, arrays: Dict[str, np.ndarray],
-         extra: Optional[Dict] = None) -> str:
-    """Atomic synchronous save of named numpy arrays. Returns the final directory."""
+def _write(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
+           extra: Optional[Dict]) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = {leaf_key(k): np.asarray(arrays[k]) for k in sorted(arrays)}
     npz_path = os.path.join(tmp, "host0.npz")
     np.savez(npz_path, **flat)
     with open(npz_path, "rb") as f:
@@ -132,6 +141,91 @@ def save(ckpt_dir: str, step: int, arrays: Dict[str, np.ndarray],
     return final
 
 
+def save(ckpt_dir: str, step: int, arrays: Dict[str, np.ndarray],
+         extra: Optional[Dict] = None) -> str:
+    """Atomic synchronous save of named numpy arrays. Returns the final directory."""
+    return _write(ckpt_dir, step,
+                  {leaf_key(k): np.asarray(arrays[k]) for k in sorted(arrays)}, extra)
+
+
+def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(keystr, leaf) of a tree of dicts and lists, dict keys sorted as jax
+    flattens them."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flatten(tree[k], f"{prefix}['{k}']")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _unflatten(flat: Dict[str, np.ndarray]):
+    """The tree of dicts (string keys) and lists (index keys) of keystr paths."""
+    root: Dict = {}
+    for key, leaf in flat.items():
+        path = [m.group(1) if m.group(1) is not None else int(m.group(2))
+                for m in _KEY_RE.finditer(key)]
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if out and all(isinstance(k, int) for k in out):
+            return [out[i] for i in sorted(out)]
+        return out
+
+    return lists(root)
+
+
+def host_copy(leaf) -> np.ndarray:
+    """A numpy copy of a tensor or array that nothing else references;
+    bf16 as float32, which holds it exactly."""
+    if isinstance(leaf, torch.Tensor):
+        dtype = torch.float32 if leaf.dtype == torch.bfloat16 else leaf.dtype
+        return leaf.detach().to("cpu", dtype, copy=True).numpy()
+    return np.array(leaf)
+
+
+class AsyncCheckpointer:
+    """Overlap checkpoint writes with training: :meth:`save` copies the tree
+    to host memory on the calling thread (a copy, so the next in-place
+    update cannot reach what is being written) and writes it on a
+    background thread; :meth:`wait` joins it and raises what it raised."""
+
+    def __init__(self, ckpt_dir: str):
+        self.ckpt_dir = ckpt_dir
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.last_path: Optional[str] = None
+
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
+        self.wait()
+        flat = {k: host_copy(v) for k, v in _flatten(tree)}
+
+        def work():
+            try:
+                self.last_path = _write(self.ckpt_dir, step, flat, extra)
+            except BaseException as e:  # re-raised by wait() on the caller's thread
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+
 def atomic_write_json(path: str, obj: Any) -> str:
     """Write JSON via tmp + fsync + rename + parent-dir fsync: the commit
     point of a save that spans several bundles (a mutable index).  A crash
@@ -155,15 +249,9 @@ def read_manifest(ckpt_dir: str, step: int) -> Dict:
         return json.load(f)
 
 
-def restore(ckpt_dir: str, step: int, names: Iterable[str]
-            ) -> Tuple[Dict[str, np.ndarray], Dict]:
-    """Read the named leaves of one step, verifying each against its digest.
-
-    Returns ``(arrays, manifest)``.  An unreadable manifest or payload, a
-    missing or unreadable leaf, or a digest mismatch moves the step aside
-    (:func:`quarantine_step`) and raises :class:`CorruptBundleError`
-    (manifests before format 5 carry no digests and load unverified).
-    """
+def _read(ckpt_dir: str, step: int, keys: Optional[Iterable[str]]
+          ) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """Read leaves by key (all of the manifest's for None), each verified."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     try:
         manifest = read_manifest(ckpt_dir, step)
@@ -175,8 +263,7 @@ def restore(ckpt_dir: str, step: int, names: Iterable[str]
     out: Dict[str, np.ndarray] = {}
     problem = None
     try:
-        for name in names:
-            key = leaf_key(name)
+        for key in (manifest.get("leaves", {}) if keys is None else keys):
             try:
                 arr = data[key]
             except _READ_ERRORS as e:
@@ -189,13 +276,40 @@ def restore(ckpt_dir: str, step: int, names: Iterable[str]
                     problem = (f"{key}: digest mismatch "
                                f"({got_hex[:12]} != {want_hex[:12]})")
                     break
-            out[name] = arr
+            out[key] = arr
     finally:
         data.close()
     if problem is not None:
         raise CorruptBundleError(ckpt_dir, step, [problem],
                                  quarantine_step(ckpt_dir, step))
     return out, manifest
+
+
+def restore(ckpt_dir: str, step: int, names: Iterable[str]
+            ) -> Tuple[Dict[str, np.ndarray], Dict]:
+    """Read the named leaves of one step, verifying each against its digest.
+
+    Returns ``(arrays, manifest)``.  An unreadable manifest or payload, a
+    missing or unreadable leaf, or a digest mismatch moves the step aside
+    (:func:`quarantine_step`) and raises :class:`CorruptBundleError`
+    (manifests before format 5 carry no digests and load unverified).
+    """
+    names = list(names)
+    flat, manifest = _read(ckpt_dir, step, [leaf_key(n) for n in names])
+    return {n: flat[leaf_key(n)] for n in names}, manifest
+
+
+def restore_tree(ckpt_dir: str, step: int) -> Tuple[Any, Dict]:
+    """Every leaf of one step, verified as :func:`restore` does, as the tree
+    of dicts and lists their keystr paths spell.  Returns ``(tree, manifest)``."""
+    flat, manifest = _read(ckpt_dir, step, None)
+    return _unflatten(flat), manifest
+
+
+def _dtype_matches(arr: np.ndarray, dtype: str) -> bool:
+    # A bf16 leaf written through ml_dtypes reads back as 2-byte void.
+    return str(arr.dtype) == dtype or (dtype == "bfloat16" and arr.dtype.kind == "V"
+                                       and arr.dtype.itemsize == 2)
 
 
 def verify_step(ckpt_dir: str, step: int) -> List[str]:
@@ -223,7 +337,7 @@ def verify_step(ckpt_dir: str, step: int) -> List[str]:
             except _READ_ERRORS as e:
                 problems.append(f"{key}: missing/unreadable ({e!r})")
                 continue
-            if list(arr.shape) != list(shape) or str(arr.dtype) != dtype:
+            if list(arr.shape) != list(shape) or not _dtype_matches(arr, dtype):
                 problems.append(f"{key}: shape/dtype {arr.shape}/{arr.dtype} != "
                                 f"manifest {tuple(shape)}/{dtype}")
                 continue

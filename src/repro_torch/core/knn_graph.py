@@ -19,14 +19,15 @@ every top-k is a stable ascending sort sliced to k, never ``torch.topk``.
 
 from __future__ import annotations
 
+import warnings
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import hilbert
+from repro_torch.core import hilbert, quantize, sketch
 from repro_torch.core.search import _merge_topk_dedup, _topk_smallest
-from repro_torch.core.types import GraphParams
+from repro_torch.core.types import ForestConfig, GraphParams, QuantizerConfig
 from repro_torch.kernels.hamming import hamming_rows_indexed
 
 __all__ = [
@@ -156,3 +157,25 @@ def knn_graph_from_sketches(
         ids_out.append(ids_c)
         d_out.append(d_c)
     return torch.cat(ids_out), torch.cat(d_out)
+
+
+def build_knn_graph(points, params: GraphParams,
+                    quant_cfg: QuantizerConfig = QuantizerConfig(),
+                    forest_cfg: ForestConfig = ForestConfig(), chunk: int = 1 << 16, *,
+                    device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DEPRECATED: use ``repro_torch.index.HilbertIndex.build(...).knn_graph(...)``,
+    which reuses the quantizer and sketches fitted at build time; this
+    fits them again on every call."""
+    warnings.warn(
+        "repro_torch.core.knn_graph.build_knn_graph is deprecated; use "
+        "repro_torch.index.HilbertIndex.knn_graph(params), which reuses the "
+        "index's fitted quantizer/sketches", DeprecationWarning, stacklevel=2)
+    from repro_torch.index.facade import resolve_device
+
+    points = torch.as_tensor(points, dtype=torch.float32, device=resolve_device(device))
+    quant = quantize.fit(points, bits=quant_cfg.bits, sample_limit=quant_cfg.sample_limit)
+    sketches = sketch.sketches_from_codes(quantize.encode(quant, points),
+                                          bits=quant_cfg.bits)
+    return knn_graph_from_sketches(
+        points, sketches, params, bits=forest_cfg.bits, key_bits=forest_cfg.key_bits,
+        lo=points.min(dim=0).values, hi=points.max(dim=0).values, chunk=chunk)

@@ -17,14 +17,15 @@ every argsort passes ``stable=True``.
 
 from __future__ import annotations
 
-from typing import Tuple
+import warnings
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core import forest as forest_lib
 from repro_torch.core import hilbert, quantize, sketch
 from repro_torch.core.quantize import Quantizer
-from repro_torch.core.types import ForestConfig
+from repro_torch.core.types import ForestConfig, QuantizerConfig, SearchParams
 from repro_torch.kernels.hamming import hamming_rows_indexed, hamming_rows_indexed_ref
 from repro_torch.kernels.qdist import qdist_windows_rows, qdist_windows_rows_ref
 from repro_torch.kernels.qdist import window_rows as _window_slices
@@ -366,3 +367,68 @@ def brute_force_topk(queries: torch.Tensor, points: torch.Tensor,
     d2 = torch.where(valid[None, :], d2, torch.inf)
     dist, idx = _topk_smallest(d2, k)
     return idx.to(torch.int32), dist
+
+
+# ---------------------------------------------------------------------------
+# Deprecated entry points (``repro``'s build_index / search)
+# ---------------------------------------------------------------------------
+
+
+class HilbertForestIndex(NamedTuple):
+    """DEPRECATED legacy container: use :class:`repro_torch.index.HilbertIndex`.
+
+    It carries no config, so callers of :func:`search` must supply the
+    build-time ``ForestConfig`` again.  Codes stay unpacked, (n, d) uint8
+    in master order; the facade stores them nibble-packed.
+    """
+
+    forest: forest_lib.HilbertForest
+    quant: Quantizer
+    codes_master: torch.Tensor
+    sketches_master: torch.Tensor
+    master_order: torch.Tensor
+    master_rank: torch.Tensor
+
+
+def build_index(points, forest_cfg: ForestConfig,
+                quant_cfg: QuantizerConfig = QuantizerConfig(), *,
+                device=None) -> HilbertForestIndex:
+    """DEPRECATED: use ``repro_torch.index.HilbertIndex.build(points, cfg)``."""
+    warnings.warn(
+        "repro_torch.core.search.build_index is deprecated; use "
+        "repro_torch.index.HilbertIndex.build(points, IndexConfig(...))",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.index import HilbertIndex, IndexConfig
+
+    idx = HilbertIndex.build(
+        points, IndexConfig(forest=forest_cfg, quantizer=quant_cfg, store_points=False),
+        device=device)
+    return HilbertForestIndex(
+        forest=idx.forest, quant=idx.quant,
+        codes_master=quantize.unpack_codes(idx.codes_master, idx.dim),
+        sketches_master=idx.sketches_master, master_order=idx.master_order,
+        master_rank=idx.master_rank)
+
+
+def search(index: HilbertForestIndex, queries, params: SearchParams,
+           forest_cfg: ForestConfig, query_chunk: int = 2048,
+           use_kernels: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DEPRECATED: use ``repro_torch.index.HilbertIndex.search(queries, params)``,
+    whose index carries its own config (a ``forest_cfg`` other than the
+    build's corrupts results here)."""
+    warnings.warn(
+        "repro_torch.core.search.search is deprecated; use "
+        "repro_torch.index.HilbertIndex.search(queries, params): the index "
+        "carries its own config", DeprecationWarning, stacklevel=2)
+    from repro_torch.index import HilbertIndex, IndexConfig
+
+    bits = index.quant.centroids.shape[1].bit_length() - 1
+    idx = HilbertIndex(
+        config=IndexConfig(forest=forest_cfg, quantizer=QuantizerConfig(bits=bits),
+                           store_points=False),
+        forest=index.forest, quant=index.quant,
+        codes_master=quantize.pack_codes(index.codes_master),
+        sketches_master=index.sketches_master, master_order=index.master_order,
+        master_rank=index.master_rank)
+    return idx.search(queries, params, backend="kernel" if use_kernels else "ref",
+                      query_chunk=query_chunk)

@@ -1,1 +1,2 @@
-"""Synthetic ANN datasets (numpy copies of ``repro.data`` plus a device generator)."""
+"""Synthetic ANN datasets (numpy copies of ``repro.data`` plus a device
+generator) and the synthetic LM token stream (``data.pipeline``)."""

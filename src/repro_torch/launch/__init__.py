@@ -1,1 +1,2 @@
-"""repro_torch.launch — entry-point drivers (``repro.launch``): the serving driver."""
+"""repro_torch.launch — entry-point drivers (``repro.launch``): the serving
+driver and the training driver."""

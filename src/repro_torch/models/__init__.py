@@ -1,4 +1,12 @@
-"""repro_torch.models — the model zoo's serving side (``repro.models``):
-the config dataclasses, the dense decoder's layers and
-:class:`~repro_torch.models.model.Transformer` with prefill and
-ring-cache decode."""
+"""repro_torch.models — the model zoo (``repro.models``): the config
+dataclasses, the decoder's layers, its MoE FFN and
+:class:`~repro_torch.models.model.Transformer` with prefill, ring-cache
+decode and the training losses."""
+
+from repro_torch.models.model import (  # noqa: F401
+    Transformer,
+    chunked_lm_loss,
+    init_params,
+    lm_loss,
+    train_loss,
+)

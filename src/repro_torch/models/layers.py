@@ -20,7 +20,8 @@ Decode caches hold a ``pos`` row per batch row, ``(B, L)``: lanes of the
 continuous-batching scheduler sit at different positions, each writing its
 own ring slot ``pos % L`` (``repro`` vmaps batch-1 caches for that).
 :func:`attn_decode` updates the cache in place.  Sinusoidal positions and
-cross-attention (whisper) wait for ROADMAP module 13's encoder-decoder item.
+cross-attention (whisper) wait for ROADMAP module 13's encoder-decoder item;
+the MoE FFN is :mod:`repro_torch.models.moe`.
 """
 
 from __future__ import annotations
@@ -43,25 +44,43 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Weights(nn.Module):
-    """A module whose weights the model may pre-cast once to bf16.
+    """A module whose big weights the model casts to bf16.
 
-    :meth:`w` returns weight ``name`` in ``dtype``: the model's cached bf16
-    copy where it made one (see ``Transformer._bf16_params``), else a cast
-    at the use site, as ``repro``'s ``p[name].astype(dtype)``.
+    :meth:`w` returns weight ``name`` in ``dtype``:
+
+    * under autograd, for a weight that requires grad, the cast the model
+      made inside the graph for the current loss (``Transformer.train_hidden``),
+      so gradients flow through it in bf16 back to the fp32 weight, as
+      through ``repro``'s per-step ``_bf16_params``;
+    * otherwise the model's cached bf16 copy (``Transformer._bf16_params``)
+      while the weight is unchanged since the copy was made: an in-place
+      update (an optimizer step, ``load_state_dict``) bumps the weight's
+      ``_version`` and the stale copy is never served;
+    * else a cast at the use site, as ``repro``'s ``p[name].astype(dtype)``.
     """
 
     def __init__(self):
         super().__init__()
         self._cast: Dict[str, torch.Tensor] = {}
+        self._cast_version: Dict[str, int] = {}
+        self._step_cast: Dict[str, torch.Tensor] = {}
 
     def w(self, name: str, dtype: torch.dtype) -> torch.Tensor:
-        cast = self._cast.get(name)
+        p = getattr(self, name)
+        if torch.is_grad_enabled() and p.requires_grad:
+            cast = self._step_cast.get(name)
+        else:
+            cast = self._cast.get(name)
+            if cast is not None and self._cast_version[name] != p._version:
+                cast = None
         if cast is not None and cast.dtype == dtype:
             return cast
-        return getattr(self, name).to(dtype)
+        return p.to(dtype)
 
 
 def _param(shape, device) -> nn.Parameter:
+    """An fp32 weight; it requires grad only once training turns that on
+    (``repro_torch.train.init_train_state``)."""
     return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
                         requires_grad=False)
 

@@ -1,12 +1,20 @@
-"""Config-driven dense decoder: port of ``repro.models.model``'s serving side.
+"""Config-driven decoder (dense and MoE): port of ``repro.models.model``.
 
 :class:`Transformer` is an ``nn.Module`` over an ``nn.ModuleList`` of the
 ``n_layers`` decoder layers in ``repro``'s order (block b, pattern position
 s is layer ``b * pattern_len + s``; then the tail), where ``repro`` scans
 stacked blocks.  It provides ``forward`` (``last_only``,
 ``return_hidden``), ``prefill``, ``decode_step`` (``with_hidden``),
-``make_decode_caches`` and ``pad_caches``; :func:`init_params` draws
-``repro``'s distributions from a ``torch.Generator`` on the target device.
+``make_decode_caches`` and ``pad_caches``, all without autograd, and
+``train_hidden``, the forward the losses differentiate: it casts the big
+weights to bf16 once inside the graph (``repro``'s ``_bf16_params`` under
+its identity-VJP pin) and runs each layer under ``cfg.remat_policy``
+(``repro``'s ``_maybe_remat``: ``"none"``; ``"full"``, only the layer's
+input saved; ``"minimal"``, the outputs of the matmuls without batch dims
+saved as ``dots_with_no_batch_dims_saveable`` does).  The losses are
+:func:`lm_loss`, :func:`chunked_lm_loss` and :func:`train_loss`;
+:func:`init_params` draws ``repro``'s distributions from a
+``torch.Generator`` on the target device.
 
 ``decode_step`` takes the position as a scalar or as a ``(B,)`` tensor, so
 scheduler lanes at different positions decode in one call (``repro``
@@ -20,30 +28,30 @@ decode then wraps inside the window), and ``pad_caches`` trims a ring
 longer than ``max_seq``.
 
 What waits for ROADMAP module 13 raises ``NotImplementedError`` naming
-its item: the training losses, MoE, Mamba-2, encoder-decoder and patch
-inputs.
+its item: Mamba-2, encoder-decoder and patch inputs.
 """
 
 from __future__ import annotations
 
-from typing import List
+import functools
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.index.facade import DeviceLike, resolve_device
-from repro_torch.models import layers
-from repro_torch.models.config import ATTN, DENSE, MOE, NONE, LayerSpec, ModelConfig
-from repro_torch.models.layers import AttnCache, Weights
+from repro_torch.models import layers, moe
+from repro_torch.models.config import ATTN, DENSE, NONE, LayerSpec, ModelConfig
+from repro_torch.models.layers import AttnCache
 
 Caches = List[AttnCache]
 
 _BF16_MIN_ELEMENTS = 1_000_000
 
 _ITEMS = {
-    "training": "13a (training: the losses, optim/adamw.py, train/train_loop.py)",
-    "moe": "13b (MoE: models/moe.py)",
     "mamba": "13c (Mamba-2: models/ssm.py)",
     "encdec": "13d (encoder-decoder and VLM: whisper, llava)",
 }
@@ -58,8 +66,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
         if spec.mixer != ATTN:
             raise _unported(f"{cfg.name}: mixer {spec.mixer!r}", "mamba")
-        if spec.ffn == MOE:
-            raise _unported(f"{cfg.name}: MoE layers", "moe")
         if spec.cross_attn:
             raise _unported(f"{cfg.name}: cross-attention", "encdec")
     if cfg.is_encdec or cfg.n_patches:
@@ -79,7 +85,8 @@ class DecoderLayer(nn.Module):
         self.mixer = layers.Attention(cfg, device)
         if spec.ffn != NONE:
             self.norm2 = layers.Norm(cfg, cfg.d_model, device)
-            self.ffn = layers.FFN(cfg, device)
+            self.ffn = (layers.FFN(cfg, device) if spec.ffn == DENSE
+                        else moe.MoE(cfg, device))
 
     def reset(self, gen: torch.Generator) -> None:
         self.norm1.reset()
@@ -89,8 +96,52 @@ class DecoderLayer(nn.Module):
             self.ffn.reset(gen)
 
 
+def _ffn(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor):
+    """The layer's FFN residual branch: (x + ffn(norm2(x)), MoE aux)."""
+    h = layers.apply_norm(cfg, layer.norm2, x)
+    if layer.spec.ffn == DENSE:
+        return x + layers.ffn_forward(cfg, layer.ffn, h), None
+    f, aux = moe.moe_forward(cfg, layer.ffn, h)
+    return x + f, aux
+
+
+def _layer_forward(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor,
+                   positions: torch.Tensor, emit_cache: bool = False):
+    """One layer over the full sequence: (x, MoE aux or None, cache or None)."""
+    h = layers.apply_norm(cfg, layer.norm1, x)
+    a, cache = layers.attn_forward(cfg, layer.spec, layer.mixer, h, positions,
+                                   emit_cache=emit_cache)
+    x = x + a
+    aux = None
+    if layer.spec.ffn != NONE:
+        x, aux = _ffn(cfg, layer, x)
+    return x, aux, cache
+
+
+_MATMULS = (torch.ops.aten.mm.default,)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of plain
+    matmuls (projections, router); recompute the rest, batched products
+    (attention, experts) included."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(policy: str, fn):
+    """``repro``'s ``_maybe_remat`` for one layer: remat changes what is
+    kept for the backward pass, never a value."""
+    if policy == "none":
+        return fn
+    if policy == "minimal":
+        context = functools.partial(create_selective_checkpoint_contexts, _save_matmuls)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context)
+    return functools.partial(checkpoint, fn, use_reentrant=False)  # "full"
+
+
 class Transformer(nn.Module):
-    """The dense decoder of ``cfg``, its weights fp32 on ``device``.
+    """The decoder of ``cfg`` (dense or MoE FFNs), its weights fp32 on ``device``.
 
     Weights are allocated uninitialised: use :func:`init_params`, or
     ``load_state_dict`` (e.g. of :func:`repro_torch.models.convert.params_from_jax`).
@@ -110,20 +161,46 @@ class Transformer(nn.Module):
 
     # -- weights -------------------------------------------------------------
 
-    def _bf16_params(self) -> None:
-        """Cast weights over 1M elements to bf16 once, for a bf16 model.
+    def _weights(self):
+        return (m for m in self.modules() if isinstance(m, layers.Weights))
 
-        ``repro`` casts them once a step; the cast values are the same.
-        Small leaves (norm scales) are cast at their use sites.
+    def _big(self, module: layers.Weights):
+        """(name, weight) of the module's weights that a bf16 model casts
+        whole: fp32 and over 1M elements (``repro``'s ``_bf16_params``).
+        Small leaves (norm scales, the router) are cast at their use sites."""
+        if self.dtype != torch.bfloat16:
+            return
+        for name, p in module.named_parameters(recurse=False):
+            if p.dtype == torch.float32 and p.numel() > _BF16_MIN_ELEMENTS:
+                yield name, p
+
+    def _bf16_params(self) -> None:
+        """Make the serving path's bf16 copies of the big weights, each only
+        where its weight changed since its copy was made.
+
+        ``repro`` casts them once a step; the cast values are the same.  The
+        serving entry points call this first, so a weight updated in place
+        since (an optimizer step) is cast anew before it is served.
         """
-        for module in self.modules():
-            if isinstance(module, Weights):
-                module._cast = {}
-                if self.dtype != torch.bfloat16:
-                    continue
-                for name, p in module.named_parameters(recurse=False):
-                    if p.dtype == torch.float32 and p.numel() > _BF16_MIN_ELEMENTS:
-                        module._cast[name] = p.detach().to(torch.bfloat16)
+        for module in self._weights():
+            for name, p in self._big(module):
+                if module._cast_version.get(name) != p._version:
+                    module._cast[name] = p.detach().to(torch.bfloat16)
+                    module._cast_version[name] = p._version
+
+    def _cast_for_step(self) -> None:
+        """Cast the big weights to bf16 inside autograd for one loss (their
+        gradients flow back in bf16 and reach the fp32 weights as fp32), and
+        drop the serving copies, which training makes stale."""
+        for module in self._weights():
+            module._cast, module._cast_version = {}, {}
+            module._step_cast = {name: p.to(torch.bfloat16)
+                                 for name, p in self._big(module)}
+
+    def release_step(self) -> None:
+        """Free the casts of the last loss once its gradients are taken."""
+        for module in self._weights():
+            module._step_cast = {}
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         out = super().load_state_dict(state_dict, strict=strict, assign=assign)
@@ -140,22 +217,41 @@ class Transformer(nn.Module):
 
     def _run(self, tokens: torch.Tensor, emit_caches: bool):
         cfg = self.cfg
+        self._bf16_params()
         b, s = tokens.shape
         positions = self._positions(b, s)
         x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
         caches = [] if emit_caches else None
         for layer in self.layers:
-            spec = layer.spec
-            h = layers.apply_norm(cfg, layer.norm1, x)
-            a, c = layers.attn_forward(cfg, spec, layer.mixer, h, positions,
-                                       emit_cache=emit_caches)
+            x, _, c = _layer_forward(cfg, layer, x, positions, emit_caches)
             if emit_caches:
-                caches.append(_ring_compress(cfg, spec, c))
-            x = x + a
-            if spec.ffn == DENSE:
-                h = layers.apply_norm(cfg, layer.norm2, x)
-                x = x + layers.ffn_forward(cfg, layer.ffn, h)
+                caches.append(_ring_compress(cfg, layer.spec, c))
         return layers.apply_norm(cfg, self.final_norm, x), caches
+
+    def train_hidden(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The forward the losses differentiate: (B, S) tokens -> (final-norm
+        hidden states (B, S, D), the summed MoE aux loss, fp32).
+
+        Big weights are cast to bf16 once, inside the graph; each layer runs
+        under ``cfg.remat_policy``.  The casts stay referenced until
+        :meth:`release_step` or the next call, since a rematerialized layer
+        reads them again in the backward pass.
+        """
+        cfg = self.cfg
+        self._cast_for_step()
+        tokens = self._tokens(tokens)
+        b, s = tokens.shape
+        positions = self._positions(b, s)
+        x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for layer in self.layers:
+            def body(x, layer=layer):
+                x, a, _ = _layer_forward(cfg, layer, x, positions)
+                return x, a
+            x, a = _maybe_remat(cfg.remat_policy, body)(x)
+            if a is not None:
+                aux = aux + a
+        return layers.apply_norm(cfg, self.final_norm, x), aux
 
     @torch.no_grad()
     def forward(self, tokens, *, last_only: bool = False,
@@ -195,6 +291,7 @@ class Transformer(nn.Module):
         retrieval path queries with ``with_hidden``.
         """
         cfg = self.cfg
+        self._bf16_params()
         tokens = self._tokens(tokens)
         b = tokens.shape[0]
         idx = torch.as_tensor(idx, device=self.device).long()
@@ -202,13 +299,11 @@ class Transformer(nn.Module):
             idx = idx.expand(b)
         x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
         for layer, cache in zip(self.layers, caches):
-            spec = layer.spec
             h = layers.apply_norm(cfg, layer.norm1, x)
-            a, _ = layers.attn_decode(cfg, spec, layer.mixer, h, idx, cache)
+            a, _ = layers.attn_decode(cfg, layer.spec, layer.mixer, h, idx, cache)
             x = x + a
-            if spec.ffn == DENSE:
-                h = layers.apply_norm(cfg, layer.norm2, x)
-                x = x + layers.ffn_forward(cfg, layer.ffn, h)
+            if layer.spec.ffn != NONE:
+                x, _ = _ffn(cfg, layer, x)
         x = layers.apply_norm(cfg, self.final_norm, x)
         logits = layers.unembed(cfg, self.embed, x)[:, 0]
         if with_hidden:
@@ -279,17 +374,65 @@ def _ring_compress(cfg: ModelConfig, spec: LayerSpec, c: AttnCache) -> AttnCache
 
 
 # ---------------------------------------------------------------------------
-# Training (ROADMAP module 13a)
+# Losses
 # ---------------------------------------------------------------------------
 
 
-def lm_loss(*args, **kwargs):
-    raise _unported("lm_loss", "training")
+def _nll(lf: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked token NLLs of fp32 logits over the whole padded vocab (the
+    padding rows are in the log-sum-exp, as in ``repro``); the label logit
+    is a gather, equal to ``repro``'s one-hot contraction."""
+    logz = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - ll) * mask
 
 
-def chunked_lm_loss(*args, **kwargs):
-    raise _unported("chunked_lm_loss", "training")
+def lm_loss(cfg: ModelConfig, logits: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """Mean masked NLL of (B, S, Vp) logits."""
+    nll = _nll(logits.float(), labels, mask)
+    return nll.sum() / mask.sum().clamp_min(1.0)
 
 
-def train_loss(*args, **kwargs):
-    raise _unported("train_loss", "training")
+def _loss_chunk_size(s: int, cap: int = 512) -> int:
+    """Largest divisor of s that is <= cap (full s if s <= cap)."""
+    if s <= cap:
+        return s
+    for c in range(cap, 0, -1):
+        if s % c == 0:
+            return c
+    return s
+
+
+def chunked_lm_loss(model: Transformer, x: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy of final hidden states (B, S, D) without the
+    (B, S, Vp) logits: the unembed and the loss run over sequence chunks in
+    ``repro``'s order, each chunk rematerialized in the backward pass, so
+    only one chunk's (B, C, Vp) logits are live."""
+    cfg = model.cfg
+    s = x.shape[1]
+    c = _loss_chunk_size(s)
+
+    def chunk(xi, li, mi):
+        lf = layers.unembed(cfg, model.embed, xi).float()
+        return _nll(lf, li, mi).sum(), mi.sum()
+
+    nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    m_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in range(0, s, c):
+        nll, m = checkpoint(chunk, x[:, a : a + c], labels[:, a : a + c],
+                            mask[:, a : a + c], use_reentrant=False)
+        nll_sum, m_sum = nll_sum + nll, m_sum + m
+    return nll_sum / m_sum.clamp_min(1.0)
+
+
+def train_loss(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``repro``'s ``train_loss``: the chunked NLL of ``batch["tokens"]``
+    against ``batch["labels"]`` under ``batch["mask"]``, plus 0.01 x the
+    MoE aux loss.  Differentiable in the model's weights."""
+    x, aux = model.train_hidden(batch["tokens"])
+    dev = model.device
+    loss = chunked_lm_loss(model, x, torch.as_tensor(batch["labels"], device=dev),
+                           torch.as_tensor(batch["mask"], device=dev))
+    return loss + 0.01 * aux

@@ -272,3 +272,53 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                          env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+# -- deprecated entry points ---------------------------------------------------
+
+
+def test_deprecated_build_index_equals_the_facade(dataset):
+    from repro_torch.core import quantize
+    from repro_torch.core import search as search_lib
+
+    data, _ = dataset
+    fcfg = ForestConfig(**_FOREST)
+    with pytest.warns(DeprecationWarning, match="HilbertIndex.build"):
+        old = search_lib.build_index(data, fcfg, device="cpu")
+    idx = HilbertIndex.build(data, IndexConfig(forest=fcfg, store_points=False),
+                             device="cpu")
+    assert torch.equal(old.codes_master, quantize.unpack_codes(idx.codes_master, idx.dim))
+    for name in ("sketches_master", "master_order", "master_rank"):
+        assert torch.equal(getattr(old, name), getattr(idx, name)), name
+    for a, b in zip(old.forest, idx.forest):
+        assert torch.equal(a, b)
+
+
+def test_deprecated_search_equals_the_facade(dataset):
+    from repro_torch.core import search as search_lib
+
+    data, queries = dataset
+    fcfg = ForestConfig(**_FOREST)
+    with pytest.warns(DeprecationWarning):
+        old = search_lib.build_index(data, fcfg, device="cpu")
+    idx = HilbertIndex.build(data, IndexConfig(forest=fcfg, store_points=False),
+                             device="cpu")
+    params = SearchParams(**_PARAMS)
+    with pytest.warns(DeprecationWarning, match="carries its own config"):
+        ids, d2 = search_lib.search(old, queries, params, fcfg, query_chunk=16)
+    want_ids, want_d2 = idx.search(queries, params, backend="ref", query_chunk=16)
+    assert torch.equal(ids, want_ids) and torch.equal(d2, want_d2)
+
+
+def test_deprecated_build_knn_graph_equals_the_facade(dataset):
+    from repro_torch.core import knn_graph as knn_graph_lib
+    from repro_torch.core.types import GraphParams
+
+    data, _ = dataset
+    fcfg = ForestConfig(**_FOREST)
+    params = GraphParams(n_orders=2, k1=16, k2=32, k=8)
+    with pytest.warns(DeprecationWarning, match="reuses the index's fitted"):
+        ids, d2 = knn_graph_lib.build_knn_graph(data, params, forest_cfg=fcfg, device="cpu")
+    want_ids, want_d2 = HilbertIndex.build(data, IndexConfig(forest=fcfg),
+                                           device="cpu").knn_graph(params)
+    assert torch.equal(ids, want_ids) and torch.equal(d2, want_d2)
