@@ -107,42 +107,42 @@ def ptxas_lines(name: str, log: str) -> None:
 LOOKUP = "acc[s % kAcc] += lds(a + ((4 * p + e) * 8 + s) * kLevels * 4);"
 NO_LOOKUP = "acc[s % kAcc] += __uint_as_float(a + ((4 * p + e) * 8 + s) * kLevels * 4);"
 COPY = ("copy16(slot + my_chunk * 32 + (cw ^ (my_chunk * kSwizzle)),\n"
-        "                 ok ? src[j] + wd : rows, ok);")
+        "                   ok ? src[j] + wd : rows, ok);")
 NO_COPY = "(void)ok;"
 # The pair table holds (q_a - c[a, lo])^2 + (q_b - c[b, hi])^2 for dims
 # a = 2m, b = 2m + 1 and every byte (hi, lo); a word is 4 lookups.
 PAIR = (
-    ("sizeof(float) * static_cast<size_t>(slabs_of(w)) * kWords * 8 * kLevels",
-     "sizeof(float) * static_cast<size_t>(slabs_of(w)) * kWords * 4 * 256"),
-    ("reinterpret_cast<uint4*>(lut + slabs * kWords * 8 * kLevels)",
-     "reinterpret_cast<uint4*>(lut + slabs * kWords * 4 * 256)"),
-    ("""  for (int i = t; i < slabs * kWords * 8 * kLevels; i += kThreads) {
-    const int j = i >> 4;  // dim; cent is (D, 16), so its index is i
-    float v = 0.f;
-    if (j < d) {
-      const float diff = qrow[j] - cent[i];
-      v = __fmul_rn(diff, diff);
-    }
-    lut[i] = v;
-  }""", """  for (int i = t; i < slabs * kWords * 4 * 256; i += kThreads) {
-    const int a = 2 * (i >> 8), b = a + 1, v = i & 255;
-    float x = 0.f, y = 0.f;
-    if (a < d) { const float f = qrow[a] - cent[a * 16 + (v & 15)]; x = __fmul_rn(f, f); }
-    if (b < d) { const float f = qrow[b] - cent[b * 16 + (v >> 4)]; y = __fmul_rn(f, f); }
-    lut[i] = x + y;
-  }"""),
-    ("""          const uint32_t even = (word << 2) & 0x3C3C3C3Cu;  // byte i: 4 x nibble 2i
-          const uint32_t odd = (word >> 2) & 0x3C3C3C3Cu;   // byte i: 4 x nibble 2i + 1
+    ("sizeof(float) * static_cast<size_t>(slabs) * kWords * 8 * kLevels",
+     "sizeof(float) * static_cast<size_t>(slabs) * kWords * 4 * 256"),
+    ("reinterpret_cast<uint4*>(lut + tile * kWords * 8 * kLevels)",
+     "reinterpret_cast<uint4*>(lut + tile * kWords * 4 * 256)"),
+    ("""    for (int i = t; i < (s1 - s0) * kWords * 8 * kLevels; i += kThreads) {
+      const int j = dim0 + (i >> 4);  // dim; cent is (D, 16)
+      float v = 0.f;
+      if (j < d) {
+        const float diff = qrow[j] - cent[dim0 * kLevels + i];
+        v = __fmul_rn(diff, diff);
+      }
+      lut[i] = v;
+    }""", """    for (int i = t; i < (s1 - s0) * kWords * 4 * 256; i += kThreads) {
+      const int a = dim0 + 2 * (i >> 8), b = a + 1, v = i & 255;
+      float x = 0.f, y = 0.f;
+      if (a < d) { const float f = qrow[a] - cent[a * 16 + (v & 15)]; x = __fmul_rn(f, f); }
+      if (b < d) { const float f = qrow[b] - cent[b * 16 + (v >> 4)]; y = __fmul_rn(f, f); }
+      lut[i] = x + y;
+    }"""),
+    ("""            const uint32_t even = (word << 2) & 0x3C3C3C3Cu;  // byte i: 4 x nibble 2i
+            const uint32_t odd = (word >> 2) & 0x3C3C3C3Cu;   // byte i: 4 x nibble 2i + 1
 #pragma unroll
-          for (int s = 0; s < 8; ++s) {
-            // tab | (4 x nibble s) in one byte permute, + the dim's row.
-            const unsigned a = __byte_perm(s & 1 ? odd : even, tab, 0x7650 | (s >> 1));
-            """ + LOOKUP + """
-          }""", """#pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const unsigned a = ((b == 0 ? word << 2 : word >> (8 * b - 2)) & 0x3FCu) | tab;
-            acc[b % kAcc] += lds(a + ((4 * p + e) * 4 + b) * 1024);
-          }"""),
+            for (int s = 0; s < 8; ++s) {
+              // tab | (4 x nibble s) in one byte permute, + the dim's row.
+              const unsigned a = __byte_perm(s & 1 ? odd : even, tab, 0x7650 | (s >> 1));
+              """ + LOOKUP + """
+            }""", """#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const unsigned a = ((b == 0 ? word << 2 : word >> (8 * b - 2)) & 0x3FCu) | tab;
+              acc[b % kAcc] += lds(a + ((4 * p + e) * 4 + b) * 1024);
+            }"""),
     ("constexpr unsigned kSlabBytes = kWords * 8 * kLevels * 4;",
      "constexpr unsigned kSlabBytes = kWords * 4 * 256 * 4;"),
     ("constexpr int kLutAlign = 256;", "constexpr int kLutAlign = 1024;"),
@@ -160,7 +160,7 @@ QDIST_VARIANTS = {
     "pair_table": (PAIR, True),
     "w48": ((("int d, int w) {\n  const int slabs = (w + kWords - 1) / kWords;",
               "int d, int) {\n  constexpr int w = 48, slabs = 6;"),
-             ("#pragma unroll 1\n    for (int slab", "#pragma unroll\n    for (int slab")),
+             ("#pragma unroll 1\n      for (int slab", "#pragma unroll\n      for (int slab")),
             True),
     "no_lookups": (((LOOKUP, NO_LOOKUP),), False),
     "no_copies": (((COPY, NO_COPY),), False),
@@ -376,8 +376,11 @@ def qdist_windows_cases(torch, libs, sources, compare):
 
     g = torch.Generator(device="cuda").manual_seed(0)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    rows_abi = {v: "starts" in launcher_args(src, "qdist_windows_launch")
-                for v, src in sources.items()}
+    args = {v: launcher_args(src, "qdist_windows_launch") for v, src in sources.items()}
+    rows_abi = {v: "starts" in a for v, a in args.items()}
+    # Since the wide-D tiles the launcher takes a scratch pointer after
+    # `out`, unused at D 384.
+    scratch_abi = {v: "scratch" in a for v, a in args.items()}
 
     def launch(version, q, rows, starts, n_s, window, cent):
         """``starts`` None: ``rows`` is the pre-gathered (Q, C, W) block."""
@@ -386,10 +389,11 @@ def qdist_windows_cases(torch, libs, sources, compare):
         lib = libs[version]
         p = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
         if rows_abi[version]:
+            scratch = (None,) if scratch_abi[version] else ()
             err = lib.qdist_windows_launch(
                 p(q), p(rows), None if starts is None else p(starts), p(cent), p(out),
-                qn, n_s, window, d, ctypes.c_longlong(rows.numel() // rows.shape[-1]),
-                stream)
+                *scratch, qn, n_s, window, d,
+                ctypes.c_longlong(rows.numel() // rows.shape[-1]), stream)
         else:
             if starts is not None:
                 rows = window_rows(rows, starts, window).reshape(qn, n_s * window, -1)

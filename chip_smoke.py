@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, holds each
-against its plain PyTorch version at its paths' shapes, runs the kernel
+against its plain PyTorch version at its paths' shapes (``qdist_windows``
+also past its one-pass width, at D 4,096, 7,168 and 18,432), runs the kernel
 microbenchmark (phase ``kernel_bench``: ``repro_torch.benchmarks.
 kernel_bench``, the path of the dense Hamming and dense ADC kernels),
 checks that a build, a Task-2 graph and a streamed LSM index on the card
@@ -25,15 +26,16 @@ equal those on the CPU, then drives the paths at full width on
   launch, against the launch that reads the windows from the codes.
 * The paper's Table 1 (phase ``table1``: ``repro_torch.benchmarks.
   task1_table1``): its 16 rows (160 and 120 trees of the PUBMED23 forest,
-  k1 up to 4000) on the first 1,000,000 points and the first 2048
+  k1 up to 4000) on the first 500,000 points and the first 2048
   queries, one timed search a row after a warm-up search a forest, scored
   against their exact neighbours among those points.
 * LSM (phase ``lsm``): ``MutableHilbertIndex`` with the same forest and
-  stored points bulk-loads 2,500,000 rows as one segment, saves, turns on
-  its WAL, then streams the other 500,000 rows in inserts of 4096 with
-  0.5 % deletes and a 2048-query search every 65,536 rows (seals and tier
-  merges); recall@30 beside a fresh build's, ``compact()`` bit-equal to a
-  fresh build over the live points, save -> load and WAL replay bit-equal.
+  stored points bulk-loads 2,500,000 rows as one segment, then streams the
+  other 500,000 rows in inserts of 4096 with 0.5 % deletes and a
+  2048-query search every 65,536 rows (seals and tier merges); recall@30
+  beside a fresh build's, ``compact()`` bit-equal to a fresh build over
+  the live points; then on the first 262,144 rows a bulk load, save, WAL,
+  a stream with deletes, save -> load and WAL replay bit-equal.
 * Serving engine (phase ``engine``): ``RetrievalEngine`` over a
   ``MutableHilbertIndex`` with the LSM forest (buffer 65,536, up to 16
   segments, no WAL) bulk-loaded with 2,500,000 rows, two serve threads,
@@ -113,13 +115,13 @@ equal those on the CPU, then drives the paths at full width on
   of 64-1,024 prompt tokens, 32 new each) sampling through
   ``knn_lm_mix``.
 
-* Training and MoE, last (``repro_torch.train``, ``repro_torch.launch.train``;
+* Training and MoE (``repro_torch.train``, ``repro_torch.launch.train``;
   no kernel of the port is on this path): phase ``train_device_parity``
   holds 3 train steps of 2 microbatches of the gemma3_1b and
   granite_moe_1b smoke configs (fp32) on the card to the CPU (losses and
   grad norms within 1e-5 relative, parameters and moments within 1e-5 /
   1e-6); phase ``train_full_width`` trains gemma3_1b at its published
-  widths in bf16 with remat "minimal" for 12 steps of 8 x 1,024 tokens (ms
+  widths in bf16 with remat "minimal" for 8 steps of 8 x 1,024 tokens (ms
   a step, tokens/s, the model FLOPs over the dense bf16 peak, peak memory;
   the loss must fall); phase ``moe_full_width`` runs granite_moe_1b at its
   published widths: a fp32 forward of 2 x 1,024 tokens with prefill and
@@ -131,6 +133,25 @@ equal those on the CPU, then drives the paths at full width on
   resumed losses bit-equal, and phase ``train_resume_cli`` runs ``python
   -m repro_torch.launch.train --smoke`` and resumes it.
   ``chip_train_profile.py`` profiles a train step of both full-width cells.
+
+* The rest of the model zoo, last (Mamba-2, the hybrid, the
+  encoder-decoder and the VLM; random weights from ``--seed``, random
+  frames and patches): phase ``family_device_parity`` holds the four smoke
+  configs' forward, prefill and 4 decode steps (fp32) on the card to the
+  CPU, and 3 train steps of mamba2_780m and whisper_small as
+  ``train_device_parity`` does; phase ``ssm_full_width`` runs
+  mamba2_780m at its published widths (a fp32 forward of 2 x 1,024 with
+  prefill and decode against it, 8 bf16 train steps of 8 x 1,024 tokens
+  with the SSD's FLOPs in the MFU, the scheduler serving the trained
+  weights); phase ``hybrid_full_width`` runs jamba_v01_52b's widths cut to
+  one pattern block of 8 layers (a fp32 forward at drop-free capacity
+  with prefill and decode against it, then a kNN-LM store of 65,536 keys x
+  4,096 and 4 prompts decoded for 8 steps with a lookup each: kernels 1-3
+  at D 4,096, the kernel route equal to the plain route); phase
+  ``encdec_full_width`` runs whisper_small at its published widths with
+  1,500 frames (forward, prefill and decode; 8 bf16 train steps); phase
+  ``vlm_full_width`` runs llava_next_34b's widths cut to 8 of 60 layers on
+  4,096 tokens whose first 2,880 are patches (forward, prefill, decode).
 
 Before them, phase ``device_parity_engine`` runs the same engine
 operations on the CPU and on the card at 10,000 rows (step-mode searches,
@@ -203,6 +224,10 @@ LSM_DELETE = 0.005  # share of the live ids deleted per round
 LSM_QUERIES = 2048
 LSM_TAIL = 4096  # rows inserted after the last save (the WAL tail)
 LSM_TAIL_DELETES = 1000
+# Its save -> load and WAL replay checks run on the first rows (a cut of
+# depth, as the sharded phases' bundles: at 3,000,000 rows the bundle I/O
+# took ~80 s of the phase).
+LSM_PERSIST_ROWS = 262_144
 
 # The serving engine (phase ``engine``): benchmarks/serving.py's run_phase
 # on the LSM configuration at this card's size — one bulk segment, a write
@@ -241,9 +266,10 @@ ENGINE_SERIES = [
 # task1_table1) over the corpus, on this many of the queries: one query
 # chunk, so fewer queries would save no time on a launch-bound search.
 TABLE1_QUERIES = 2048
-# Its rows (a cut of depth from the corpus's 3,000,000, to pay for the
-# kNN-LM phases): the first TABLE1_ROWS, with their own exact neighbours.
-TABLE1_ROWS = 1_000_000
+# Its rows (a cut of depth from the corpus's 3,000,000: 1,000,000 to pay
+# for the kNN-LM phases, 500,000 for the rest of the model zoo): the first
+# TABLE1_ROWS, with their own exact neighbours.
+TABLE1_ROWS = 500_000
 TABLE1_TIMED_SEARCHES = 1  # a row; the module's default of 3 took ~100 s more
 CHUNK_QUERIES = 2048  # one query chunk: the bundle checks' queries
 
@@ -251,6 +277,13 @@ CHUNK_QUERIES = 2048  # one query chunk: the bundle checks' queries
 ENGINE_RETAINED_GIB = 1.0
 
 KERNEL_REPS = 20  # timed runs per kernel (after warm-up)
+# The windows kernel past its one-pass width (D > 3,200): the zoo's wider
+# d_model (granite_3_8b and jamba, yi and llava, nemotron), checked on a
+# few queries (the plain version builds (Q, C, D) at once) and timed at the
+# engine's pool over a kNN-LM store's worth of rows.
+WIDE_DIMS = (4096, 7168, 18432)
+WIDE_CHECK_QUERIES = 8
+WIDE_ROWS = 1 << 16
 # Rows of the cuda-vs-cpu checks (cut from 20,000 to pay for the kNN-LM
 # phases), and the write buffers that keep every stage they check firing
 # at that size: seals, tier merges, a read-triggered rewrite.
@@ -333,8 +366,8 @@ SCHED_REQUESTS, SCHED_PROMPT, SCHED_NEW = 24, (64, 1024), 32
 # Training and MoE (phases train_device_parity, train_full_width,
 # moe_full_width, train_resume): gemma3_1b and granite_moe_1b at their
 # published widths with random weights from --seed, repro.launch.train's
-# optimizer settings with 12 / 8 steps, the token pipeline's Zipf + motif
-# stream.
+# optimizer settings with 8 steps (12 for gemma3_1b before the zoo's
+# phases), the token pipeline's Zipf + motif stream.
 TRAIN_PARITY_ARCHS = ("gemma3_1b", "granite_moe_1b")  # smoke configs, fp32
 TRAIN_PARITY_STEPS, TRAIN_PARITY_BATCH = 3, (4, 32)
 TRAIN_PARITY_RTOL = 1e-5  # losses and grad_norm, CPU vs card, TF32 off
@@ -348,13 +381,37 @@ TRAIN_PARITY_LR = 1e-5
 TRAIN_BATCH = (8, 1024)  # sequences x tokens a step (past gemma3's 512 window)
 TRAIN_MICRO = 2
 TRAIN_LR = 1e-3
-TRAIN_FULL_STEPS = 12
+TRAIN_FULL_STEPS = 8
 MOE_ARCH = "granite_moe_1b"
 MOE_FULL_TOL = (1e-4, 1e-5)  # prefill / decode vs forward, fp32, drop-free capacity
 MOE_TRAIN_STEPS = 8
 MOE_SCHED_SLOTS, MOE_SCHED_MAX_SEQ = 4, 512
 MOE_SCHED_REQUESTS, MOE_SCHED_PROMPT, MOE_SCHED_NEW = 8, (32, 256), 8
 RESUME_LAYERS = 2  # gemma3_1b's widths, 2 of its 26 layers: a 4.3 GB state file
+# The rest of the zoo (phases family_device_parity, ssm_full_width,
+# hybrid_full_width, encdec_full_width, vlm_full_width): published widths,
+# random weights from --seed, depth cut where one card cannot hold the
+# model (jamba's 32 layers are 103 GB in bf16; llava's 60 are 69 GB).
+ZOO_ARCHS = ("mamba2_780m", "jamba_v01_52b", "whisper_small", "llava_next_34b")
+ZOO_TRAIN_PARITY_ARCHS = ("mamba2_780m", "whisper_small")
+ZOO_TRAIN_STEPS = 8
+SSM_ARCH, HYBRID_ARCH, ENCDEC_ARCH, VLM_ARCH = ZOO_ARCHS
+HYBRID_LAYERS = 8  # one pattern block: 13,267,597,952 parameters, 53 GB in fp32
+HYBRID_KNN_CORPUS = (32, 2049)  # 65,536 keys x 4,096
+HYBRID_KNN_FORWARD_BATCH = 2
+HYBRID_KNN_PROMPTS = (4, 1024)
+HYBRID_KNN_STEPS = 8
+VLM_LAYERS = 8  # of 60: 5,387,705,344 parameters, 21.6 GB in fp32
+VLM_LEN = 4096  # its first 2,880 positions are the patches
+# Prefill + decode against the forward at full width, fp32: rtol 1e-4 and an
+# atol of 5e-4 of the logits' largest magnitude.  Two fp32 evaluation orders
+# of a deep or wide random model drift apart past 1e-5: on an H100, over 8
+# decode steps, mamba2_780m's 48 layers by 4.6e-4 (logits up to 4.2),
+# jamba's block by 4.8e-4 (7.6), llava's 8 layers at d 7,168 by 8.5e-5
+# (10.8); whisper_small's by 3.6e-6.  chip_ssd_drift.py shows no path off:
+# at 4 layers the forward, prefill + decode and the recurrence from
+# position 0 agree within 1.7e-5 of one another.
+ZOO_FULL_RTOL, ZOO_FULL_ATOL_OF_SCALE = 1e-4, 5e-4
 RESUME_AT, RESUME_STEPS = 2, 4
 H100_BF16_DENSE_FLOPS = 989e12  # NVIDIA H100 SXM data sheet, dense bf16, 700 W
 
@@ -589,15 +646,67 @@ def phase_kernel_parity(torch, reps: int):
             "ms": median_ms(lambda: qdist_windows(q, pool, cent), reps),
             "bound_ms": b_ms, "bound_by": b_by}
         del pool
+    del q, win, cent, keep
+    torch.cuda.empty_cache()
+    # Past D 3,200 the kernel walks the dims in tiles (the zoo's widths):
+    # both wrappers against their plain versions on WIDE_CHECK_QUERIES
+    # queries of 384 windows of 5 rows (a window at 0 and one at n - 5 in
+    # every query), bit-equal to each other; the rows wrapper timed at the
+    # engine's pool, 2048 queries, over WIDE_ROWS rows of codes.
+    wide = {}
+    for d in WIDE_DIMS:
+        w = -(-d // 8)
+        qn, n_s, window = 2048, 384, 5
+        c = n_s * window
+        q = torch.randn(qn, d, generator=g, device=dev)
+        cent = torch.sort(torch.randn(d, 16, generator=g, device=dev), dim=1).values
+        codes = words(WIDE_ROWS, w)
+        starts = torch.randint(0, WIDE_ROWS - window + 1, (qn, n_s), generator=g,
+                               device=dev, dtype=torch.int32)
+        starts[:, 0], starts[:, -1] = 0, WIDE_ROWS - window
+        qc, sc = q[:WIDE_CHECK_QUERIES], starts[:WIDE_CHECK_QUERIES].contiguous()
+        win = window_rows(codes, sc, window).reshape(WIDE_CHECK_QUERIES, c, w)
+        got = qdist_windows_rows(qc, codes, sc, window, cent)
+        pre = qdist_windows(qc, win, cent)
+        ref = qdist_windows_rows_ref(qc, codes, sc, window, cent)
+        pre_ref = qdist_windows_ref(qc, win, cent)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=DIST_RTOL, atol=DIST_ATOL)
+        torch.testing.assert_close(pre, pre_ref, rtol=DIST_RTOL, atol=DIST_ATOL)
+        if not torch.equal(got, pre):
+            raise AssertionError(f"qdist_windows_rows != qdist_windows at D {d}")
+        err = max(float((got - ref).abs().max()), float((pre - pre_ref).abs().max()))
+        del got, pre, ref, pre_ref, win
+        rows_read = torch.unique(
+            starts[:, :, None] + torch.arange(window, device=dev)).numel()
+        b_ms, b_by = bound((qn * d + rows_read * w + qn * n_s + d * 16 + qn * c) * 4,
+                           3 * qn * c * d)
+        cq = WIDE_CHECK_QUERIES
+        cb_ms, cb_by = bound((cq * d + cq * c * w + cq * n_s + d * 16 + cq * c) * 4,
+                             3 * cq * c * d)
+        wide[d] = {
+            "max_abs_err": err, "shape": [qn, c, d], "rows": WIDE_ROWS,
+            "ms": median_ms(lambda: qdist_windows_rows(q, codes, starts, window, cent),
+                            reps),
+            "bound_ms": b_ms, "bound_by": b_by, "rows_read": rows_read,
+            "check_shape": [cq, c, d],
+            "check_ms": median_ms(lambda: qdist_windows_rows(qc, codes, sc, window, cent),
+                                  reps),
+            "check_plain_ms": median_ms(
+                lambda: qdist_windows_rows_ref(qc, codes, sc, window, cent), 5),
+            "check_bound_ms": cb_ms, "check_bound_by": cb_by}
+        del q, cent, codes, starts, qc, sc
+        torch.cuda.empty_cache()
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
+                                  *(x["max_abs_err"] for x in wide.values()))
+    rows[-1]["wide_d"] = {str(d): x for d, x in wide.items()}
     emit({"phase": "kernel_parity", "kernel": "qdist_windows",
           "rtol": DIST_RTOL, "atol": DIST_ATOL,
           "max_abs_err": {str(list(s)): e for s, e in errs.items()},
           "rows_max_abs_err": {str(list(s)): e for s, e in rows_errs.items()},
           "rows_bit_equal_to_pre_gathered": True,
           **{x: rows[-1][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
-          "table1_times": t1_times})
-    del q, win, cent, keep
-    torch.cuda.empty_cache()
+          "table1_times": t1_times, "wide_d": rows[-1]["wide_d"]})
 
     # --- pack_bits: exact ---------------------------------------------------
     # Shapes: the sketches of the corpus, one key chunk of the curve, the
@@ -1231,10 +1340,12 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
     """The streaming LSM index at full width; returns the kernel launches of
     its path (bulk load, stream, searches, compaction).
 
-    Bulk-load the first 5/6 of the points as one segment, save, turn on the
-    WAL, stream the rest in inserts of ``LSM_BATCH`` rows with a delete and
-    search round every ``LSM_BUFFER`` rows, then hold recall, compaction,
-    save/load and WAL replay to their references.
+    Bulk-load the first 5/6 of the points as one segment, stream the rest
+    in inserts of ``LSM_BATCH`` rows with a delete and search round every
+    ``LSM_BUFFER`` rows, then hold recall and compaction to their
+    references.  Persistence runs the same steps on the first
+    LSM_PERSIST_ROWS rows (a cut of depth): bulk load, save, WAL on, stream
+    the rest with deletes; save -> load and WAL replay bit-equal.
     """
     import gc
 
@@ -1262,12 +1373,8 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
         live[mut.bulk_load(points[:bulk])] = True
         torch.cuda.synchronize()
         bulk_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        mut.save(path)
-        save0_s = time.perf_counter() - t0
-        mut.enable_wal(path, WalConfig())
         emit({"phase": "lsm_bulk", "rows": bulk, "bulk_load_s": bulk_s,
-              "save_s": save0_s, "memory": mut.memory_report()["per_segment"]})
+              "memory": mut.memory_report()["per_segment"]})
 
         spent = count_seals_and_merges(torch, mut)
         pos, rnd = bulk, 0
@@ -1354,7 +1461,29 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
             raise AssertionError("search after compact() differs from a fresh "
                                  "build over the live points")
 
-        # Persistence: save -> load bit-equal; then an unsaved WAL tail.
+        del mut
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Persistence on the first LSM_PERSIST_ROWS rows: bulk load 5/6,
+        # save, WAL on, stream the rest with deletes (logged); save -> load
+        # bit-equal; then an unsaved WAL tail of inserts and deletes.
+        sub = points[:LSM_PERSIST_ROWS]
+        sub_bulk = LSM_PERSIST_ROWS * 5 // 6
+        mut = MutableHilbertIndex(cfg, buffer_capacity=LSM_BUFFER,
+                                  max_segments=LSM_MAX_SEGMENTS)
+        sub_live = mut.bulk_load(sub[:sub_bulk])
+        t0 = time.perf_counter()
+        mut.save(path)
+        save0_s = time.perf_counter() - t0
+        mut.enable_wal(path, WalConfig())
+        for s in range(sub_bulk, LSM_PERSIST_ROWS, LSM_BATCH):
+            sub_live = np.concatenate([sub_live, mut.insert(
+                sub[s : min(s + LSM_BATCH, LSM_PERSIST_ROWS)])])
+        dead = rng.choice(sub_live, int(LSM_DELETE * sub_live.size), replace=False)
+        mut.delete(dead)
+        sub_live = np.setdiff1d(sub_live, dead)
+        cids, cd = mut.search(q, params)
         t0 = time.perf_counter()
         mut.save(path)
         save_s = time.perf_counter() - t0
@@ -1366,7 +1495,7 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
         del loaded
         load_equal = torch.equal(lids, cids) and torch.equal(ld, cd)
         tail_ids = mut.insert(tail)
-        mut.delete(rng.choice(np.concatenate([live_ids, tail_ids]), LSM_TAIL_DELETES,
+        mut.delete(rng.choice(np.concatenate([sub_live, tail_ids]), LSM_TAIL_DELETES,
                               replace=False))
         mut.wal.sync()
         wids, wd = mut.search(q, params)
@@ -1381,7 +1510,8 @@ def phase_lsm(torch, cfg, params, points, queries, seed: int, recall_floor: floa
                         and (rec.n_live, rec.n_deleted, rec.n_buffered) == want_state)
         rec.detach_wal().close()
         del rec
-        emit({"phase": "lsm_persistence", "save_s": save_s, "load_s": load_s,
+        emit({"phase": "lsm_persistence", "rows": LSM_PERSIST_ROWS,
+              "first_save_s": save0_s, "save_s": save_s, "load_s": load_s,
               "load_bit_equal": load_equal, "wal_replay_load_s": replay_s,
               "wal_replay_bit_equal": replay_equal,
               "wal_tail": {"rows": LSM_TAIL, "deletes": LSM_TAIL_DELETES}})
@@ -3455,47 +3585,64 @@ def train_states_equal(torch, a: dict, b: dict, rtol: float, atol: float) -> dic
     return worst
 
 
-def phase_train_device_parity(torch, seed: int):
-    """The gemma3_1b and granite_moe_1b smoke configs in fp32 (TF32 off):
-    the same train state on the CPU and on the card (carried across by
-    ``convert``), 3 steps of 2 microbatches each: losses and grad norms
-    within 1e-5 relative, parameters and moments after the steps within
-    1e-5 / 1e-6 (at TRAIN_PARITY_LR)."""
+def train_device_parity(torch, arch: str, seed: int) -> dict:
+    """``arch``'s smoke config in fp32 (TF32 off): the same train state on
+    the CPU and on the card (carried across by ``convert``), 3 steps of 2
+    microbatches each (an encoder-decoder's batch with the same random
+    frames on both devices).  Returns the report; raises when losses or
+    grad norms differ by more than 1e-5 relative, or parameters and
+    moments after the steps by more than 1e-5 / 1e-6 (at TRAIN_PARITY_LR)."""
+    import numpy as np
+
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import serve
     from repro_torch.models.convert import train_state_from_jax, train_state_to_jax
     from repro_torch.optim import OptimizerConfig
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True), compute_dtype="float32")
+    tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(
+        lr=TRAIN_PARITY_LR, warmup_steps=1, total_steps=TRAIN_PARITY_STEPS))
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, *TRAIN_PARITY_BATCH, seed=seed))
+    rng = np.random.default_rng(seed)
+    extra = [serve.stub_inputs(cfg, rng, TRAIN_PARITY_BATCH[0])
+             for _ in range(TRAIN_PARITY_STEPS)]
+    states = {"cpu": init_train_state(cfg, tcfg, seed, device="cpu")}
+    states["gpu"] = train_state_from_jax(cfg, tcfg, train_state_to_jax(cfg, states["cpu"]),
+                                         device="cuda")
+    step = make_train_step(cfg, tcfg)
+    metrics = {"cpu": [], "gpu": []}
+    for dev, torch_dev in (("cpu", "cpu"), ("gpu", "cuda")):
+        for s in range(TRAIN_PARITY_STEPS):
+            batch = pipe.torch_batch(s, torch_dev)
+            batch.update({k: torch.from_numpy(v).to(torch_dev) for k, v in extra[s].items()})
+            states[dev], m = step(states[dev], batch)
+            metrics[dev].append({k: float(v) for k, v in m.items()})
+    rel = {k: max(abs(g[k] - c[k]) / abs(c[k]) for c, g in zip(metrics["cpu"],
+                                                               metrics["gpu"]))
+           for k in ("loss", "grad_norm")}
+    report = {"arch": cfg.name, "steps": TRAIN_PARITY_STEPS, "microbatches": TRAIN_MICRO,
+              "losses": {d: [m["loss"] for m in ms] for d, ms in metrics.items()},
+              "lr": TRAIN_PARITY_LR, "max_rel_err": rel, "rtol": TRAIN_PARITY_RTOL}
+    try:
+        report["max_abs_err"] = train_states_equal(
+            torch, states["gpu"], states["cpu"], TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL)
+    except AssertionError as e:
+        report["error"] = str(e)[:2000]
+    if "error" not in report and max(rel.values()) > TRAIN_PARITY_RTOL:
+        report["error"] = f"losses or grad norms beyond {TRAIN_PARITY_RTOL}: {rel}"
+    return report
+
+
+def phase_train_device_parity(torch, seed: int):
+    """``train_device_parity`` of the gemma3_1b and granite_moe_1b smoke
+    configs, one line each."""
     for arch in TRAIN_PARITY_ARCHS:
-        cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
-                                  compute_dtype="float32")
-        tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(
-            lr=TRAIN_PARITY_LR, warmup_steps=1, total_steps=TRAIN_PARITY_STEPS))
-        pipe = TokenPipeline(DataConfig(cfg.vocab_size, *TRAIN_PARITY_BATCH, seed=seed))
-        states = {"cpu": init_train_state(cfg, tcfg, seed, device="cpu")}
-        states["gpu"] = train_state_from_jax(cfg, tcfg, train_state_to_jax(cfg, states["cpu"]),
-                                             device="cuda")
-        step = make_train_step(cfg, tcfg)
-        metrics = {"cpu": [], "gpu": []}
-        for dev, torch_dev in (("cpu", "cpu"), ("gpu", "cuda")):
-            for s in range(TRAIN_PARITY_STEPS):
-                states[dev], m = step(states[dev], pipe.torch_batch(s, torch_dev))
-                metrics[dev].append({k: float(v) for k, v in m.items()})
-        rel = {k: max(abs(g[k] - c[k]) / abs(c[k]) for c, g in zip(metrics["cpu"],
-                                                                   metrics["gpu"]))
-               for k in ("loss", "grad_norm")}
-        report = {"phase": "train_device_parity", "arch": cfg.name, "steps": TRAIN_PARITY_STEPS,
-                  "microbatches": TRAIN_MICRO,
-                  "losses": {d: [m["loss"] for m in ms] for d, ms in metrics.items()},
-                  "lr": TRAIN_PARITY_LR, "max_rel_err": rel, "rtol": TRAIN_PARITY_RTOL}
-        try:
-            report["max_abs_err"] = train_states_equal(
-                torch, states["gpu"], states["cpu"], TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL)
-        finally:
-            emit(report)
-        if max(rel.values()) > TRAIN_PARITY_RTOL:
-            raise AssertionError(f"train_device_parity {arch}: {rel}")
+        report = train_device_parity(torch, arch, seed)
+        emit({"phase": "train_device_parity", **report})
+        if "error" in report:
+            raise AssertionError(f"train_device_parity {arch}: {report['error']}")
 
 
 def attention_flops(cfg, seq: int) -> int:
@@ -3511,11 +3658,12 @@ def attention_flops(cfg, seq: int) -> int:
     return 4 * pairs * cfg.n_heads * cfg.head_dim
 
 
-def train_steps(torch, cfg, tcfg, seed: int, steps: int, state=None, start: int = 0
-                ) -> dict:
+def train_steps(torch, cfg, tcfg, seed: int, steps: int, state=None, start: int = 0,
+                extra=None) -> dict:
     """Train steps ``start`` .. ``steps - 1`` on the card from
     ``init_train_state`` (or ``state``): losses, grad norms and host ms a
-    synchronized step."""
+    synchronized step.  ``extra(step)`` adds entries to a step's batch (an
+    encoder-decoder's frames)."""
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.train import init_train_state, make_train_step
 
@@ -3526,6 +3674,8 @@ def train_steps(torch, cfg, tcfg, seed: int, steps: int, state=None, start: int 
     out = {"losses": [], "grad_norms": [], "ms": []}
     for s in range(start, steps):
         batch = pipe.torch_batch(s, "cuda")
+        if extra is not None:
+            batch.update(extra(s))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -3547,7 +3697,7 @@ def check_losses(name: str, losses: list) -> None:
 
 
 def phase_train_full_width(torch, seed: int):
-    """gemma3_1b at its published widths, bf16, remat "minimal": 12 steps of
+    """gemma3_1b at its published widths, bf16, remat "minimal": 8 steps of
     8 x 1,024 tokens in 2 microbatches; ms a step, tokens/s, peak memory,
     the model FLOPs of a step over the card's dense bf16 peak; no NaN, and
     the last loss below the first."""
@@ -3678,6 +3828,426 @@ def phase_moe_full_width(torch, seed: int):
     check_losses("moe_full_width train", run["losses"])
     if len(done) != MOE_SCHED_REQUESTS or lens != [MOE_SCHED_NEW + 1] * MOE_SCHED_REQUESTS:
         raise AssertionError(f"moe scheduler finished {len(done)} requests, lengths {lens}")
+
+
+def leaves_param_count_omits(cfg) -> int:
+    """Parameters of the module that ``repro``'s analytic ``param_count()``
+    leaves out: each SSM layer's ``conv_b`` (di + 2N) and ``dt_bias`` (H),
+    the encoder's final norm's scale (d), and each layernorm's bias (d)."""
+    from repro_torch.models.model import layer_specs
+
+    specs = layer_specs(cfg)
+    n = sum(cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+            for s in specs if s.mixer == "mamba")
+    if cfg.is_encdec:
+        n += cfg.d_model
+    if cfg.norm == "layernorm":
+        norms = sum(2 + s.cross_attn for s in specs) + 1  # norm1, norm2, norm_cross; final
+        norms += 2 * cfg.n_enc_layers + 1 if cfg.is_encdec else 0
+        n += norms * cfg.d_model
+    return n
+
+
+def check_params(cfg, model) -> dict:
+    """``param_count()`` beside the module's parameters; they must differ by
+    exactly the leaves the analytic count omits."""
+    n_params = sum(p.numel() for p in model.parameters())
+    omitted = leaves_param_count_omits(cfg)
+    if n_params != cfg.param_count() + omitted:
+        raise AssertionError(f"{cfg.name}: module parameters {n_params} != param_count() "
+                             f"{cfg.param_count()} + {omitted} omitted leaves")
+    return {"param_count": cfg.param_count(), "module_params": n_params,
+            "omitted_by_param_count": omitted}
+
+
+def prefill_decode_against_forward(torch, model, toks, s_pre: int, **extra) -> dict:
+    """The forward's logits of ``toks``, then a prefill of ``s_pre`` tokens
+    and a decode step a token after it: each step's logits against the
+    forward's within ZOO_FULL_RTOL and an atol of ZOO_FULL_ATOL_OF_SCALE
+    times the forward logits' largest magnitude (``within``); also whether
+    they meet rtol 1e-4 / atol 1e-5 (``within_1e-4_1e-5``).  Returns times,
+    errors and the verdicts."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = model(toks, **extra)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pre, caches = model.prefill(toks[:, :s_pre], **extra)
+    caches = model.pad_caches(caches, toks.shape[1])
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pairs, decode_ms = [(pre, full[:, s_pre - 1])], []
+    for t in range(s_pre, toks.shape[1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(toks[:, t : t + 1], t, caches)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        pairs.append((logits, full[:, t]))
+    scale = float(full.abs().max())
+    tol = (ZOO_FULL_RTOL, ZOO_FULL_ATOL_OF_SCALE * scale)
+    out = {"shape": list(toks.shape), "prefill": s_pre, "forward_s": forward_s,
+           "prefill_s": prefill_s, "decode_ms": decode_ms,
+           "max_abs_err": [float((a - b).abs().max()) for a, b in pairs],
+           "logits_max_abs": scale, "rtol_atol": list(tol),
+           "finite": bool(torch.isfinite(full).all()),
+           "within": all(torch.allclose(a, b, rtol=tol[0], atol=tol[1]) for a, b in pairs),
+           "within_1e-4_1e-5": all(torch.allclose(a, b, rtol=MOE_FULL_TOL[0],
+                                                  atol=MOE_FULL_TOL[1]) for a, b in pairs)}
+    del full, caches, pairs
+    return out
+
+
+def require_within(phase: str, res: dict) -> None:
+    if not (res["finite"] and res["within"]):
+        raise AssertionError(f"{phase}: prefill / decode vs forward {res['max_abs_err']} "
+                             f"beyond rtol / atol {res['rtol_atol']} (finite {res['finite']})")
+
+
+def phase_family_device_parity(torch, seed: int):
+    """The smoke configs of Mamba-2, the hybrid, the encoder-decoder and the
+    VLM in fp32, the same weights on the CPU and on the card (TF32 off):
+    forward logits, prefill logits and 4 decode steps within rtol 1e-4 /
+    atol 1e-5, and the hidden states of the forward and the prefill within
+    rtol 1e-4 / atol 1e-5 times their largest magnitude (jamba's O(1)
+    hidden states differ by 1.8e-5 across devices where its logits differ
+    by 3.4e-6), with the same random frames or patches; then
+    ``train_device_parity`` of mamba2_780m and whisper_small."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Transformer, init_params
+
+    t_phase = time.perf_counter()
+    report = {"phase": "family_device_parity", "rtol": LM_PARITY_RTOL,
+              "atol": LM_PARITY_ATOL, "max_abs_err": {}, "train": {}}
+    failures = []
+    for arch in ZOO_ARCHS:
+        cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                                  compute_dtype="float32")
+        models = {"cpu": init_params(cfg, seed, device="cpu")}
+        models["gpu"] = Transformer(cfg, device="cuda")
+        models["gpu"].load_state_dict(models["cpu"].state_dict())
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab_size, (2, 32))
+        extra = serve.stub_inputs(cfg, rng, 2)
+        s_pre = 28
+        out = {}
+        for key, m in models.items():
+            res = {"logits": m(toks, **extra), "hidden": m(toks, return_hidden=True, **extra)}
+            res["prefill"], caches, res["prefill_hidden"] = m.prefill(
+                toks[:, :s_pre], with_hidden=True, **extra)
+            caches = m.pad_caches(caches, toks.shape[1])
+            for t in range(s_pre, toks.shape[1]):
+                res[f"decode_{t}"], caches = m.decode_step(toks[:, t : t + 1], t, caches)
+            out[key] = {k: v.float().cpu() for k, v in res.items()}
+        report["max_abs_err"][arch] = {k: float((out["gpu"][k] - out["cpu"][k]).abs().max())
+                                       for k in out["cpu"]}
+        for k, want in out["cpu"].items():
+            # Logits at rtol / atol; hidden states (unscaled, O(1)) at atol
+            # times their largest magnitude.
+            scale = max(1.0, float(want.abs().max())) if "hidden" in k else 1.0
+            if not torch.allclose(out["gpu"][k], want, rtol=LM_PARITY_RTOL,
+                                  atol=LM_PARITY_ATOL * scale):
+                failures.append(f"{arch} {k}")
+    for arch in ZOO_TRAIN_PARITY_ARCHS:
+        report["train"][arch] = train_device_parity(torch, arch, seed)
+        if "error" in report["train"][arch]:
+            failures.append(f"{arch} train: {report['train'][arch]['error']}")
+    report["seconds"] = time.perf_counter() - t_phase
+    emit(report)
+    if failures:
+        raise AssertionError(f"family_device_parity: {failures}")
+
+
+def ssd_flops(cfg, seq: int) -> int:
+    """The SSD's products of one sequence's forward pass, beyond the
+    projections that 6 N tokens counts: per layer and chunk of Q tokens,
+    C B^T (2 Q^2 N), its decay-weighted product with the inputs
+    (2 Q^2 H P), the chunk states and the state's contribution to the
+    outputs (2 x 2 Q H N P)."""
+    from repro_torch.models.model import layer_specs
+
+    q, n, h, p = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    nc = -(-seq // q)
+    per_layer = nc * (2 * q * q * n + 2 * q * q * h * p + 4 * q * h * n * p)
+    return per_layer * sum(s.mixer == "mamba" for s in layer_specs(cfg))
+
+
+def zoo_train(torch, published, seed: int, steps: int, flops_per_step: float,
+              extra=None) -> tuple:
+    """``steps`` bf16 train steps of ``published`` (remat as published) on
+    TRAIN_BATCH in TRAIN_MICRO microbatches: the report, the trained model."""
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import TrainConfig
+
+    tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(
+        lr=TRAIN_LR, warmup_steps=max(steps // 10, 1), total_steps=steps))
+    torch.cuda.reset_peak_memory_stats()
+    run = train_steps(torch, published, tcfg, seed, steps, extra=extra)
+    steady = sorted(run["ms"][2:])[len(run["ms"][2:]) // 2]
+    b, s = TRAIN_BATCH
+    rep = {"dtype": published.compute_dtype, "remat": published.remat_policy,
+           "batch": b, "seq": s, "microbatches": TRAIN_MICRO, "steps": steps,
+           "ms_per_step": run["ms"], "median_ms_after_2": steady,
+           "tokens_per_s": b * s / (steady / 1e3), "losses": run["losses"],
+           "grad_norms": run["grad_norms"], "model_flops_per_step": flops_per_step,
+           "peak": "989 TFLOP/s dense bf16 (NVIDIA H100 SXM data sheet, 700 W)",
+           "model_flops_utilization": flops_per_step / (steady / 1e3) / H100_BF16_DENSE_FLOPS,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return rep, run.pop("state")["params"]
+
+
+def zoo_scheduler(torch, model, seed: int) -> dict:
+    """``ContinuousBatchingEngine`` serving ``model``: MOE_SCHED_SLOTS slots,
+    MOE_SCHED_REQUESTS requests of MOE_SCHED_PROMPT tokens, MOE_SCHED_NEW
+    new each; every request must end with MOE_SCHED_NEW + 1 tokens."""
+    import numpy as np
+
+    from repro_torch.serve.scheduler import ContinuousBatchingEngine, Request
+
+    rng = np.random.default_rng(seed + 3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, model.cfg.vocab_size, int(
+        rng.integers(MOE_SCHED_PROMPT[0], MOE_SCHED_PROMPT[1] + 1))),
+        max_new_tokens=MOE_SCHED_NEW) for i in range(MOE_SCHED_REQUESTS)]
+    eng = ContinuousBatchingEngine(model, n_slots=MOE_SCHED_SLOTS, max_seq=MOE_SCHED_MAX_SEQ)
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run(max_steps=10 * MOE_SCHED_REQUESTS * MOE_SCHED_NEW)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lens = sorted(len(r.output) for r in done.values())
+    if len(done) != MOE_SCHED_REQUESTS or lens != [MOE_SCHED_NEW + 1] * MOE_SCHED_REQUESTS:
+        raise AssertionError(f"scheduler finished {len(done)} requests, lengths {lens}")
+    return {"slots": MOE_SCHED_SLOTS, "requests": MOE_SCHED_REQUESTS, "steps": eng.steps,
+            "tokens": sum(lens), "seconds": secs, "tokens_per_s": sum(lens) / secs}
+
+
+def phase_ssm_full_width(torch, seed: int):
+    """mamba2_780m at its published widths (48 layers, d 1,536, N 128,
+    chunk 256): a fp32 forward of 2 x 1,024 tokens and a prefill of 1,016
+    plus 8 decode steps against it (``prefill_decode_against_forward``); 8
+    bf16 train steps of 8 x 1,024 tokens in 2 microbatches (ms a step, tokens/s, MFU with the SSD's
+    products, peak memory, the loss falling); the scheduler serving the
+    trained weights."""
+    from repro_torch import configs
+    from repro_torch.models.model import init_params
+
+    published = configs.get_config(SSM_ARCH)
+    cfg = dataclasses.replace(published, compute_dtype="float32")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed, device="cuda")
+    params = check_params(cfg, model)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (LM_FULL_SEQS, LM_FULL_LEN), generator=g,
+                         device="cuda")
+    fwd = prefill_decode_against_forward(torch, model, toks, LM_FULL_PREFILL)
+    fwd["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model
+    torch.cuda.empty_cache()
+    b, s = TRAIN_BATCH
+    flops = 6 * published.param_count() * b * s + 3 * b * ssd_flops(published, s)
+    train, trained = zoo_train(torch, published, seed, ZOO_TRAIN_STEPS, flops)
+    sched = zoo_scheduler(torch, trained, seed)
+    del trained
+    emit({"phase": "ssm_full_width", "arch": cfg.name, **params,
+          "forward": {"dtype": "float32", **fwd}, "train": train,
+          "ssd_flops_per_sequence": ssd_flops(published, s), "scheduler": sched,
+          "seconds": time.perf_counter() - t_phase})
+    require_within("ssm_full_width", fwd)
+    check_losses("ssm_full_width train", train["losses"])
+
+
+def phase_hybrid_full_width(torch, seed: int) -> dict:
+    """jamba_v01_52b at its published widths cut to one pattern block (8
+    layers: attention, 7 Mamba-2, 4 dense FFNs and 4 MoE FFNs): a fp32
+    forward of 2 x 1,024 tokens at drop-free capacity (E / k) and a prefill
+    of 1,016 plus 8 decode steps against it; then, on the
+    same weights at the published capacity, a kNN-LM store of the hidden
+    states of 32 sequences of 2,049 tokens (65,536 keys x 4,096) and 4
+    prompts of 1,024 tokens decoded for 8 steps with a lookup each step,
+    the kernel route equal to the plain route on every step's hidden
+    states.  Returns the lookups' launches by path."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+
+    published = configs.get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(published, n_layers=HYBRID_LAYERS, compute_dtype="float32",
+                              capacity_factor=published.n_experts / published.topk_experts)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = check_params(cfg, model)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (LM_FULL_SEQS, LM_FULL_LEN), generator=g,
+                         device="cuda")
+    fwd = prefill_decode_against_forward(torch, model, toks, LM_FULL_PREFILL)
+    fwd["capacity_factor"] = cfg.capacity_factor
+    fwd["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+
+    # The kNN-LM path at the published capacity (a serving run's; the
+    # drop-free one costs 4x the expert products on the datastore's tokens).
+    model.cfg = dataclasses.replace(cfg, capacity_factor=published.capacity_factor)
+    corpus = torch.randint(0, cfg.vocab_size, HYBRID_KNN_CORPUS, generator=g, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, HYBRID_KNN_PROMPTS, generator=g,
+                            device="cuda")
+    launches = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    keys, vals = serve.datastore_keys(model, corpus, batch=HYBRID_KNN_FORWARD_BATCH)
+    torch.cuda.synchronize()
+    keys_s = time.perf_counter() - t0
+    del corpus
+    t0 = time.perf_counter()
+    store = serve.store_from_keys(keys, vals)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    launches["hybrid_knn_lm_build"] = read_launches(torch)
+    require_launched("hybrid kNN-LM build", launches["hybrid_knn_lm_build"], ["pack_bits"])
+    hids = []
+    reset_launches()
+    run = serve.decode(model, prompts, HYBRID_KNN_STEPS, store=store, lam=LM_LAM,
+                       on_step=lambda t, hid, logp: hids.append(hid.clone()))
+    launches["hybrid_knn_lm"] = read_launches(torch)
+    require_launched("hybrid kNN-LM decode", launches["hybrid_knn_lm"],
+                     ["hamming_rows", "qdist_windows", "pack_bits"])
+
+    def route_check():
+        q = torch.cat(hids)
+        ids, d2 = store.lookup(q, serve.SEARCH)
+        ids_r, d2_r = store._impl.search(q, serve.SEARCH, backend="ref")
+        torch.testing.assert_close(d2, d2_r, rtol=DIST_RTOL, atol=DIST_ATOL)
+        return {"queries": q.shape[0], "max_abs_dist_diff": float((d2 - d2_r).abs().max()),
+                "id_mismatches_within_ties": assert_ids_equal_up_to_ties(
+                    ids_r.cpu(), ids.cpu(), d2_r.cpu())}
+
+    route = uncounted(torch, route_check)
+    tokens = run["tokens"]
+    emit({"phase": "hybrid_full_width", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "published_layers": published.n_layers, **params,
+          "published_param_count": published.param_count(), "init_s": init_s,
+          "forward": {"dtype": "float32", **fwd},
+          "knn_lm": {"capacity_factor": published.capacity_factor,
+                     "datastore_keys": keys.shape[0], "dim": keys.shape[1],
+                     "forest": dataclasses.asdict(serve.retrieval_forest(cfg.d_model)),
+                     "search": dataclasses.asdict(serve.SEARCH), "keys_s": keys_s,
+                     "build_s": build_s, "batch": HYBRID_KNN_PROMPTS[0],
+                     "prefill_ms": run["prefill_s"] * 1e3,
+                     "ms_per_step_with_retrieval": run["decode_s"] * 1e3 / HYBRID_KNN_STEPS,
+                     "route": route, "launches": {k: launches[k] for k in launches}},
+          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "seconds": time.perf_counter() - t_phase})
+    require_within("hybrid_full_width", fwd)
+    if tokens.shape != (HYBRID_KNN_PROMPTS[0], HYBRID_KNN_STEPS + 1):
+        raise AssertionError(f"hybrid kNN-LM decoded tokens {tuple(tokens.shape)}")
+    return launches
+
+
+def encdec_attention_flops(cfg, seq: int) -> int:
+    """Score and value products of one sequence's forward pass: the
+    encoder's full self-attention over its frames, the decoder's causal
+    self-attention and its cross-attention to every frame."""
+    f = cfg.enc_frames
+    pairs = cfg.n_enc_layers * f * f
+    pairs += cfg.n_layers * (seq * (seq + 1) // 2 + seq * f)
+    return 4 * pairs * cfg.n_heads * cfg.head_dim
+
+
+def phase_encdec_full_width(torch, seed: int):
+    """whisper_small at its published widths (12 + 12 layers, d 768, 1,500
+    frames): a fp32 forward of 2 x 1,024 tokens with random frames and a
+    prefill of 1,016 plus 8 decode steps against it; 8 bf16
+    train steps of 8 x 1,024 tokens with frames, timed as the other train
+    cells (model FLOPs: 6 x the decoder's parameters x tokens, 6 x the
+    encoder's x frames, 3 x the attention products)."""
+    from repro_torch import configs
+    from repro_torch.models.model import init_params
+
+    published = configs.get_config(ENCDEC_ARCH)
+    cfg = dataclasses.replace(published, compute_dtype="float32")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed, device="cuda")
+    params = check_params(cfg, model)
+    enc_params = sum(p.numel() for p in model.enc.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (LM_FULL_SEQS, LM_FULL_LEN), generator=g,
+                         device="cuda")
+    frames = torch.randn((LM_FULL_SEQS, cfg.enc_frames, cfg.d_model), generator=g,
+                         device="cuda")
+    fwd = prefill_decode_against_forward(torch, model, toks, LM_FULL_PREFILL,
+                                         frames=frames)
+    fwd["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, frames
+    torch.cuda.empty_cache()
+    b, s = TRAIN_BATCH
+    dec_params = params["module_params"] - enc_params
+    flops = (6 * dec_params * b * s + 6 * enc_params * b * cfg.enc_frames
+             + 3 * b * encdec_attention_flops(cfg, s))
+
+    def frames_of(step):
+        fg = torch.Generator(device="cuda").manual_seed(seed + 1000 + step)
+        return {"frames": torch.randn((b, cfg.enc_frames, cfg.d_model), generator=fg,
+                                      device="cuda")}
+
+    train, trained = zoo_train(torch, published, seed, ZOO_TRAIN_STEPS, flops,
+                               extra=frames_of)
+    del trained
+    emit({"phase": "encdec_full_width", "arch": cfg.name, **params,
+          "encoder_params": enc_params, "frames": cfg.enc_frames,
+          "forward": {"dtype": "float32", **fwd}, "train": train,
+          "seconds": time.perf_counter() - t_phase})
+    require_within("encdec_full_width", fwd)
+    check_losses("encdec_full_width train", train["losses"])
+
+
+def phase_vlm_full_width(torch, seed: int):
+    """llava_next_34b at its published widths cut to 8 of its 60 layers: a
+    fp32 forward of 1 x 4,096 tokens whose first 2,880 positions are
+    random patch embeddings, and a prefill of 4,088 plus 8 decode steps
+    against it."""
+    from repro_torch import configs
+    from repro_torch.models.model import init_params
+
+    published = configs.get_config(VLM_ARCH)
+    cfg = dataclasses.replace(published, n_layers=VLM_LAYERS, compute_dtype="float32")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed, device="cuda")
+    params = check_params(cfg, model)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, VLM_LEN), generator=g, device="cuda")
+    patches = torch.randn((1, cfg.n_patches, cfg.patch_dim), generator=g, device="cuda")
+    fwd = prefill_decode_against_forward(torch, model, toks, VLM_LEN - 8,
+                                         patches=patches)
+    fwd["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": "vlm_full_width", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "published_layers": published.n_layers, **params,
+          "published_param_count": published.param_count(), "patches": cfg.n_patches,
+          "forward": {"dtype": "float32", **fwd},
+          "seconds": time.perf_counter() - t_phase})
+    require_within("vlm_full_width", fwd)
+
+
+def phase_zoo(torch, seed: int) -> dict:
+    """Phases family_device_parity, ssm_full_width, hybrid_full_width,
+    encdec_full_width and vlm_full_width; returns the launches by path."""
+    launches = {}
+    for phase in (phase_family_device_parity, phase_ssm_full_width,
+                  phase_hybrid_full_width, phase_encdec_full_width, phase_vlm_full_width):
+        launches.update(phase(torch, seed) or {})
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
 
 
 def train_resume_child(ckpt_dir: str) -> int:
@@ -3930,6 +4500,9 @@ def main(argv=None) -> int:
     launches.update(phase_lm(torch, args.seed, kernels))
     torch.cuda.empty_cache()
     phase_train(torch, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(phase_zoo(torch, args.seed))
     next(r for r in kernels if r["name"] == "hamming_rows")["sharded_halo"] = {
         k: halo[k] for k in ("rows_a_shard", "k1", "distances_compared", "max_abs_err")}
     for row in kernels:

@@ -75,26 +75,38 @@ def qdist_windows_rows_ref(queries: torch.Tensor, codes_packed: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    fn = _build.library("qdist_windows").qdist_windows_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    lib = _build.library("qdist_windows")
+    fn = lib.qdist_windows_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    scratch = lib.qdist_windows_scratch_floats
+    scratch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def _launch_windows(queries, rows, starts, n_s: int, window: int, centroids):
     """Allocate (Q, S * window), launch the windows kernel, count it.
 
     ``starts`` None is the pre-gathered layout: row ``q * S * window + c``.
+    Above D = 3,200 the kernel walks the dims in tiles and carries its
+    partial sums in a scratch buffer, which the launcher sizes and this
+    allocates.
     """
     qn, d = queries.shape
     out = torch.empty((qn, n_s * window), dtype=torch.float32, device=queries.device)
     if out.numel() == 0:
         return out
-    err = _launcher()(
+    launch, scratch_floats = _launcher()
+    n_scratch = scratch_floats(d, qn, n_s * window)
+    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=queries.device)
+               if n_scratch else None)
+    err = launch(
         queries.data_ptr(), rows.data_ptr(),
         None if starts is None else starts.data_ptr(), centroids.data_ptr(),
-        out.data_ptr(), qn, n_s, window, d, rows.shape[0],
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        qn, n_s, window, d, rows.shape[0],
         torch.cuda.current_stream(queries.device).cuda_stream,
     )
     raise_on_error("qdist_windows", err)

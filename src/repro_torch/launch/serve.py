@@ -6,6 +6,9 @@ Port of ``repro.launch.serve``.  CPU smoke::
         --arch gemma3_1b --smoke --batch 4 --prompt-len 24 --gen 16 [--retrieval]
 
 The model is random-initialised from ``--seed`` at the config's widths.
+An encoder-decoder config (whisper_small) gets random frames and a config
+with patches (llava_next_34b) random patch embeddings, for the prompts
+and for the datastore's corpus, as ``repro``'s driver stubs them.
 ``--retrieval`` builds a kNN-LM datastore from the hidden states of a
 16 x 64 token corpus through the model and mixes a Hilbert-forest lookup
 into every decode step (:func:`repro_torch.serve.retrieval.knn_lm_mix`).
@@ -49,13 +52,28 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def datastore_keys(model: Transformer, corpus, *, batch: int = 16
+def stub_inputs(cfg, rng: np.random.Generator, n: int) -> dict:
+    """Random ``frames`` (n, enc_frames, D) and ``patches`` (n, n_patches,
+    patch_dim), fp32, where the config takes them (``repro``'s stubs of the
+    audio and vision front ends)."""
+    extra = {}
+    if cfg.is_encdec:
+        extra["frames"] = rng.normal(size=(n, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    if cfg.n_patches:
+        extra["patches"] = rng.normal(size=(n, cfg.n_patches, cfg.patch_dim)).astype(np.float32)
+    return extra
+
+
+def datastore_keys(model: Transformer, corpus, *, batch: int = 16, **extra
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(keys (n, D) fp32, values (n,)) of a (N, T) token corpus: the
     hidden state at each position but the last, keyed to the next token;
-    ``batch`` sequences a forward pass."""
+    ``batch`` sequences a forward pass.  ``extra``: the corpus's
+    ``frames`` or ``patches`` (N, ...), as the config needs."""
     corpus = torch.as_tensor(corpus, device=model.device).long()
-    keys = [model(corpus[i : i + batch], return_hidden=True)[:, :-1]
+    extra = {k: torch.as_tensor(v, device=model.device) for k, v in extra.items()}
+    keys = [model(corpus[i : i + batch], return_hidden=True,
+                  **{k: v[i : i + batch] for k, v in extra.items()})[:, :-1]
             .reshape(-1, model.cfg.d_model).float()
             for i in range(0, corpus.shape[0], batch)]
     return torch.cat(keys), corpus[:, 1:].reshape(-1).to(torch.int32)
@@ -74,17 +92,20 @@ def store_from_keys(keys: torch.Tensor, values: torch.Tensor, *, shards: int = 1
 
 
 def build_datastore(model: Transformer, corpus, *, shards: int = 1,
-                    store_points: bool = False, batch: int = 16) -> RetrievalStore:
-    """The kNN-LM datastore of ``corpus`` through ``model``."""
-    keys, vals = datastore_keys(model, corpus, batch=batch)
+                    store_points: bool = False, batch: int = 16,
+                    **extra) -> RetrievalStore:
+    """The kNN-LM datastore of ``corpus`` (and its ``frames`` or
+    ``patches``) through ``model``."""
+    keys, vals = datastore_keys(model, corpus, batch=batch, **extra)
     return store_from_keys(keys, vals, shards=shards, store_points=store_points)
 
 
 def decode(model: Transformer, prompts, gen: int, *,
            store: Optional[RetrievalStore] = None, params: SearchParams = SEARCH,
            lam: float = 0.25, churn: bool = False,
-           on_step: Optional[Callable] = None) -> dict:
-    """Prefill ``prompts`` (B, S) and decode ``gen`` greedy steps.
+           on_step: Optional[Callable] = None, **extra) -> dict:
+    """Prefill ``prompts`` (B, S) (with ``extra``: their ``frames`` or
+    ``patches``) and decode ``gen`` greedy steps.
 
     With a ``store`` each step's hidden state queries it and the token is
     the argmax of :func:`knn_lm_mix`; with ``churn`` every 4th step
@@ -98,7 +119,7 @@ def decode(model: Transformer, prompts, gen: int, *,
     sp = prompts.shape[1]
     total = sp + gen
     t0 = time.perf_counter()
-    logits, caches = model.prefill(prompts)
+    logits, caches = model.prefill(prompts, **extra)
     caches = model.pad_caches(caches, total)
     tok = logits.argmax(dim=-1)[:, None]
     _sync(dev)
@@ -185,13 +206,15 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(args.seed)
     b, sp = args.batch, args.prompt_len
     prompts = rng.integers(0, cfg.vocab_size, (b, sp))
+    extra = stub_inputs(cfg, rng, b)
 
     store = None
     if args.retrieval:
         corpus = rng.integers(0, cfg.vocab_size, CORPUS)
         # compaction re-sorts raw keys, so the churn demo keeps them
         store = build_datastore(model, corpus, shards=args.shards,
-                                store_points=args.churn)
+                                store_points=args.churn,
+                                **stub_inputs(cfg, rng, CORPUS[0]))
         layout = (f"sharded-mutable x{args.shards}" if store.is_sharded
                   else "mutable (single device)")
         n = CORPUS[0] * (CORPUS[1] - 1)
@@ -213,7 +236,7 @@ def main(argv=None) -> None:
             print(f"[engine] {engine!r}")
 
     run = decode(model, prompts, args.gen, store=store, lam=args.lam,
-                 churn=args.churn and store is not None)
+                 churn=args.churn and store is not None, **extra)
     print(f"[prefill] {b}x{sp} in {run['prefill_s']:.2f}s")
     if store is not None and store.engine is not None:
         store.engine.stop(drain=True)

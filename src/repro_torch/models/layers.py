@@ -1,4 +1,4 @@
-"""Dense decoder building blocks: port of ``repro.models.layers``.
+"""Decoder and encoder building blocks: port of ``repro.models.layers``.
 
 Each block is an ``nn.Module`` holding its weights in ``repro``'s layout
 (``wq`` is ``(d_model, n_heads * head_dim)``, used as ``x @ wq``); its
@@ -6,9 +6,15 @@ constructor allocates them and ``reset`` draws ``repro``'s initial values
 (the counterparts of ``norm_init``, ``attn_init``, ``ffn_init`` and
 ``embed_init``).  The computation is a plain function over it, named as
 in ``repro``:
-``apply_norm``, ``rope``, ``attn_forward`` (full sequence, optionally
-emitting its KV cache), ``attn_decode`` (one token against a ring-buffer
-cache), ``ffn_forward``, ``embed_tokens`` and ``unembed``.
+``apply_norm``, ``rope``, ``sinusoidal_positions``, ``attn_forward``
+(full sequence, causal or not, self- or cross-attention over ``x_kv``,
+optionally emitting its KV cache), ``attn_decode`` (one token against a
+ring-buffer cache), ``cross_attn_decode`` (one token against a static
+cross-attention cache; ``repro``'s ``attn_decode(is_cross=True)``),
+``ffn_forward``, ``embed_tokens`` and ``unembed``.  An encoder-decoder
+config (whisper) has no rotary embedding on any attention: its positions
+are sinusoidal, added to the inputs.  Cross-attention uses the same
+:class:`Attention` block (``repro``'s ``attn_init`` ignores ``cross``).
 
 Numerics follow ``repro``: norm statistics in fp32 with the multiply in
 ``x.dtype``; rotary cos/sin cast to ``x.dtype``; attention scores in the
@@ -19,9 +25,10 @@ plain ``einsum`` as in ``repro`` (no fused kernel there either).
 Decode caches hold a ``pos`` row per batch row, ``(B, L)``: lanes of the
 continuous-batching scheduler sit at different positions, each writing its
 own ring slot ``pos % L`` (``repro`` vmaps batch-1 caches for that).
-:func:`attn_decode` updates the cache in place.  Sinusoidal positions and
-cross-attention (whisper) wait for ROADMAP module 13's encoder-decoder item;
-the MoE FFN is :mod:`repro_torch.models.moe`.
+:func:`attn_decode` updates the cache in place.  A layer with
+cross-attention keeps its static cache of ``enc_frames`` slots in the self
+cache's ``cross`` field.  The MoE FFN is :mod:`repro_torch.models.moe`,
+the Mamba-2 mixer :mod:`repro_torch.models.ssm`.
 """
 
 from __future__ import annotations
@@ -139,6 +146,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Parameter-free position encoding (whisper's stub; any length):
+    (...,) positions -> (..., d) fp32, sines then cosines."""
+    half = d // 2
+    freqs = torch.tensor(10_000.0, device=positions.device) ** (
+        -torch.arange(half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA; full / local / SWA via the spec's window)
 # ---------------------------------------------------------------------------
@@ -165,16 +183,20 @@ class AttnCache:
     k: torch.Tensor    # (B, L, Hkv, Dh)
     v: torch.Tensor    # (B, L, Hkv, Dh)
     pos: torch.Tensor  # (B, L) int32 absolute positions stored (-1 = empty)
+    # A cross-attention layer's static cache over the encoder's frames.
+    cross: Optional["AttnCache"] = None
 
 
-def _project_qkv(cfg, p: Attention, x, positions, spec):
+def _project_qkv(cfg, p: Attention, x, x_kv, positions, spec, is_cross):
     b, s, _ = x.shape
+    sk = x_kv.shape[1]
     dtype = x.dtype
     q = (x @ p.w("wq", dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ p.w("wk", dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p.w("wv", dtype)).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    q = rope(q, positions, spec.rope_theta)
-    k = rope(k, positions, spec.rope_theta)
+    k = (x_kv @ p.w("wk", dtype)).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    v = (x_kv @ p.w("wv", dtype)).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    if not is_cross and not cfg.is_encdec:
+        q = rope(q, positions, spec.rope_theta)
+        k = rope(k, positions, spec.rope_theta)
     return q, k, v
 
 
@@ -199,8 +221,8 @@ def _causal_mask(qpos, kpos, spec: LayerSpec):
     return mask[None, None, None]
 
 
-def _attend_qchunked(cfg, q, k, v, qpos_row, kpos_row, spec):
-    """Exact causal attention over query chunks of at most 512 rows.
+def _attend_qchunked(cfg, q, k, v, qpos_row, kpos_row, spec, causal):
+    """Exact attention (causal or not) over query chunks of at most 512 rows.
 
     Each chunk's softmax axis (Sk) is complete, so chunking the query dim
     is exact and bounds the (B, h, g, C, Sk) probabilities.  ``repro``
@@ -212,22 +234,34 @@ def _attend_qchunked(cfg, q, k, v, qpos_row, kpos_row, spec):
     """
     out = []
     for a in range(0, q.shape[1], _QUERY_CHUNK):
-        mask = _causal_mask(qpos_row[a : a + _QUERY_CHUNK], kpos_row, spec)
+        mask = (_causal_mask(qpos_row[a : a + _QUERY_CHUNK], kpos_row, spec)
+                if causal else None)
         out.append(_attend(cfg, q[:, a : a + _QUERY_CHUNK], k, v, mask))
     return out[0] if len(out) == 1 else torch.cat(out, dim=1)
 
 
 def attn_forward(cfg: ModelConfig, spec: LayerSpec, p: Attention, x: torch.Tensor,
-                 positions: torch.Tensor, *, emit_cache: bool = False
+                 positions: torch.Tensor, *, causal: bool = True,
+                 x_kv: Optional[torch.Tensor] = None, emit_cache: bool = False
                  ) -> Tuple[torch.Tensor, Optional[AttnCache]]:
-    """Full-sequence causal self-attention (forward / prefill)."""
-    q, k, v = _project_qkv(cfg, p, x, positions, spec)
+    """Full-sequence attention (forward / prefill / encoder / cross).
+
+    With ``x_kv`` (B, F, D) it is cross-attention over those frames: no
+    mask, key positions 0 .. F - 1.
+    """
+    is_cross = x_kv is not None
+    x_kv = x if x_kv is None else x_kv
+    kv_positions = positions if not is_cross else torch.arange(
+        x_kv.shape[1], dtype=positions.dtype, device=x.device)[None].expand(
+            x.shape[0], x_kv.shape[1])
+    q, k, v = _project_qkv(cfg, p, x, x_kv, positions, spec, is_cross)
     # positions are uniform across the batch: masks come from one row.
-    out = _attend_qchunked(cfg, q, k, v, positions[0], positions[0], spec)
+    out = _attend_qchunked(cfg, q, k, v, positions[0], kv_positions[0], spec,
+                           causal and not is_cross)
     out = out @ p.w("wo", x.dtype)
     cache = None
     if emit_cache:
-        cache = AttnCache(k=k, v=v, pos=positions.to(torch.int32).contiguous())
+        cache = AttnCache(k=k, v=v, pos=kv_positions.to(torch.int32).contiguous())
     return out, cache
 
 
@@ -247,8 +281,9 @@ def attn_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention, x: torch.Tensor
     q = (x @ p.w("wq", dtype)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
     k_new = (x @ p.w("wk", dtype)).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
     v_new = (x @ p.w("wv", dtype)).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
-    q = rope(q, positions, spec.rope_theta)
-    k_new = rope(k_new, positions, spec.rope_theta)
+    if not cfg.is_encdec:  # enc-dec (whisper) uses sinusoidal positions only
+        q = rope(q, positions, spec.rope_theta)
+        k_new = rope(k_new, positions, spec.rope_theta)
 
     lanes = torch.arange(b, device=x.device)
     slot = idx % cache.k.shape[1]
@@ -265,14 +300,36 @@ def attn_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention, x: torch.Tensor
     return out @ p.w("wo", dtype), cache
 
 
+def cross_attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                      cache: AttnCache) -> torch.Tensor:
+    """One token a batch row against its static cross-attention cache: no
+    update, no mask, every frame attended."""
+    b = x.shape[0]
+    dtype = x.dtype
+    q = (x @ p.w("wq", dtype)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    out = _attend(cfg, q, cache.k.to(dtype), cache.v.to(dtype), None)
+    return out @ p.w("wo", dtype)
+
+
 def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_seq: int,
                     dtype=torch.bfloat16, device=None) -> AttnCache:
+    """Empty self cache (ring-sized for a windowed layer); a layer with
+    cross-attention also gets an empty cross cache of ``enc_frames`` slots."""
     length = min(spec.window, max_seq) if spec.window > 0 else max_seq
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    cross = None
+    if spec.cross_attn:
+        fshape = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.head_dim)
+        cross = AttnCache(
+            k=torch.zeros(fshape, dtype=dtype, device=device),
+            v=torch.zeros(fshape, dtype=dtype, device=device),
+            pos=torch.arange(cfg.enc_frames, dtype=torch.int32, device=device)[None]
+            .expand(batch, -1).contiguous())
     return AttnCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         pos=torch.full((batch, length), -1, dtype=torch.int32, device=device),
+        cross=cross,
     )
 
 

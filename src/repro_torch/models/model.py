@@ -1,9 +1,18 @@
-"""Config-driven decoder (dense and MoE): port of ``repro.models.model``.
+"""Config-driven model of all ten configs: port of ``repro.models.model``.
 
 :class:`Transformer` is an ``nn.Module`` over an ``nn.ModuleList`` of the
 ``n_layers`` decoder layers in ``repro``'s order (block b, pattern position
 s is layer ``b * pattern_len + s``; then the tail), where ``repro`` scans
-stacked blocks.  It provides ``forward`` (``last_only``,
+stacked blocks.  A layer's mixer is attention or a Mamba-2 SSM
+(:mod:`repro_torch.models.ssm`), its FFN dense, MoE or none, so jamba's
+mixed block runs as one stack.  An encoder-decoder config (whisper) adds
+``enc``, ``n_enc_layers`` non-causal layers and a final norm over the
+frames (sinusoidal positions added to the frames and to the decoder's
+input), and a cross-attention in each decoder layer; a config with
+patches (llava) adds ``patch_proj``, whose projections of the
+``patches`` overwrite the first ``n_patches`` positions.  The entry
+points take ``frames`` and ``patches`` keywords as ``repro``'s do.
+It provides ``forward`` (``last_only``,
 ``return_hidden``), ``prefill``, ``decode_step`` (``with_hidden``),
 ``make_decode_caches`` and ``pad_caches``, all without autograd, and
 ``train_hidden``, the forward the losses differentiate: it casts the big
@@ -18,23 +27,24 @@ saved as ``dots_with_no_batch_dims_saveable`` does).  The losses are
 
 ``decode_step`` takes the position as a scalar or as a ``(B,)`` tensor, so
 scheduler lanes at different positions decode in one call (``repro``
-vmaps batch-1 caches for that).  Caches are a list of one
-:class:`~repro_torch.models.layers.AttnCache` a layer, updated in place.
+vmaps batch-1 caches for that).  Caches are a list of one cache a layer,
+updated in place: an :class:`~repro_torch.models.layers.AttnCache` (with
+its static cross cache in ``cross`` where the layer has cross-attention)
+or an :class:`~repro_torch.models.ssm.SSMCache`.
 
-Two differences from ``repro``, both where ``repro`` would be wrong or
-cannot run: a prefill shorter than a local layer's window emits a ring of
+Differences from ``repro``, each where ``repro`` would be wrong or cannot
+run: a prefill shorter than a local layer's window emits a ring of
 ``window`` slots (``repro`` keeps a cache of the prompt's length, which
-decode then wraps inside the window), and ``pad_caches`` trims a ring
-longer than ``max_seq``.
-
-What waits for ROADMAP module 13 raises ``NotImplementedError`` naming
-its item: Mamba-2, encoder-decoder and patch inputs.
+decode then wraps inside the window); ``pad_caches`` trims a ring longer
+than ``max_seq``; and the SSM keeps its conv tail in the compute dtype and
+sums its decay exponents segment by segment (:mod:`repro_torch.models.ssm`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -43,33 +53,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.index.facade import DeviceLike, resolve_device
-from repro_torch.models import layers, moe
-from repro_torch.models.config import ATTN, DENSE, NONE, LayerSpec, ModelConfig
+from repro_torch.models import layers, moe, ssm
+from repro_torch.models.config import ATTN, DENSE, MAMBA, NONE, LayerSpec, ModelConfig
 from repro_torch.models.layers import AttnCache
+from repro_torch.models.ssm import SSMCache
 
-Caches = List[AttnCache]
+Cache = Union[AttnCache, SSMCache]
+Caches = List[Cache]
 
 _BF16_MIN_ELEMENTS = 1_000_000
-
-_ITEMS = {
-    "mamba": "13c (Mamba-2: models/ssm.py)",
-    "encdec": "13d (encoder-decoder and VLM: whisper, llava)",
-}
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} waits for its port: ROADMAP.md module "
-                               f"{_ITEMS[item]}")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    for spec in cfg.pattern:
-        if spec.mixer != ATTN:
-            raise _unported(f"{cfg.name}: mixer {spec.mixer!r}", "mamba")
-        if spec.cross_attn:
-            raise _unported(f"{cfg.name}: cross-attention", "encdec")
-    if cfg.is_encdec or cfg.n_patches:
-        raise _unported(f"{cfg.name}: encoder or patch inputs", "encdec")
+ENC_SPEC = LayerSpec(mixer=ATTN, ffn=DENSE)
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -78,11 +71,23 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
 
 
 class DecoderLayer(nn.Module):
+    """One layer of ``spec`` (``repro``'s ``_layer_init``): ``norm1`` and the
+    mixer; ``norm_cross`` and ``cross`` with cross-attention; ``norm2`` and
+    the FFN unless it is none."""
+
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
         super().__init__()
         self.spec = spec
         self.norm1 = layers.Norm(cfg, cfg.d_model, device)
-        self.mixer = layers.Attention(cfg, device)
+        if spec.mixer == ATTN:
+            self.mixer = layers.Attention(cfg, device)
+        elif spec.mixer == MAMBA:
+            self.mixer = ssm.SSM(cfg, device)
+        else:
+            raise ValueError(spec.mixer)
+        if spec.cross_attn:
+            self.norm_cross = layers.Norm(cfg, cfg.d_model, device)
+            self.cross = layers.Attention(cfg, device)
         if spec.ffn != NONE:
             self.norm2 = layers.Norm(cfg, cfg.d_model, device)
             self.ffn = (layers.FFN(cfg, device) if spec.ffn == DENSE
@@ -91,9 +96,28 @@ class DecoderLayer(nn.Module):
     def reset(self, gen: torch.Generator) -> None:
         self.norm1.reset()
         self.mixer.reset(gen)
+        if self.spec.cross_attn:
+            self.norm_cross.reset()
+            self.cross.reset(gen)
         if self.spec.ffn != NONE:
             self.norm2.reset()
             self.ffn.reset(gen)
+
+
+class Encoder(nn.Module):
+    """``repro``'s ``enc`` subtree: ``n_enc_layers`` layers of ``ENC_SPEC``
+    and a final norm."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.blocks = nn.ModuleList(DecoderLayer(cfg, ENC_SPEC, device)
+                                    for _ in range(cfg.n_enc_layers))
+        self.final_norm = layers.Norm(cfg, cfg.d_model, device)
+
+    def reset(self, gen: torch.Generator) -> None:
+        for layer in self.blocks:
+            layer.reset(gen)
+        self.final_norm.reset()
 
 
 def _ffn(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor):
@@ -106,12 +130,28 @@ def _ffn(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor):
 
 
 def _layer_forward(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor,
-                   positions: torch.Tensor, emit_cache: bool = False):
-    """One layer over the full sequence: (x, MoE aux or None, cache or None)."""
+                   positions: torch.Tensor, emit_cache: bool = False,
+                   enc_out: Optional[torch.Tensor] = None, causal: bool = True):
+    """One layer over the full sequence: (x, MoE aux or None, cache or None);
+    a cross-attention layer attends to ``enc_out`` and emits its cross
+    cache into the self cache's ``cross``."""
+    spec = layer.spec
     h = layers.apply_norm(cfg, layer.norm1, x)
-    a, cache = layers.attn_forward(cfg, layer.spec, layer.mixer, h, positions,
-                                   emit_cache=emit_cache)
+    if spec.mixer == ATTN:
+        a, cache = layers.attn_forward(cfg, spec, layer.mixer, h, positions,
+                                       causal=causal, emit_cache=emit_cache)
+        if emit_cache:
+            cache = _ring_compress(cfg, spec, cache)
+    else:
+        a, cache = ssm.ssm_forward(cfg, layer.mixer, h, emit_cache=emit_cache)
     x = x + a
+    if spec.cross_attn:
+        h = layers.apply_norm(cfg, layer.norm_cross, x)
+        a, cross = layers.attn_forward(cfg, spec, layer.cross, h, positions,
+                                       x_kv=enc_out, emit_cache=emit_cache)
+        if emit_cache:
+            cache.cross = cross
+        x = x + a
     aux = None
     if layer.spec.ffn != NONE:
         x, aux = _ffn(cfg, layer, x)
@@ -149,7 +189,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None):
         super().__init__()
-        _check_supported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.device = dev
@@ -158,6 +197,10 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg, spec, dev)
                                     for spec in layer_specs(cfg))
         self.final_norm = layers.Norm(cfg, cfg.d_model, dev)
+        if cfg.is_encdec:
+            self.enc = Encoder(cfg, dev)
+        if cfg.n_patches:
+            self.patch_proj = layers._param((cfg.patch_dim, cfg.d_model), dev)
 
     # -- weights -------------------------------------------------------------
 
@@ -215,38 +258,77 @@ class Transformer(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _run(self, tokens: torch.Tensor, emit_caches: bool):
+    def _embed(self, tokens: torch.Tensor, patches, frames, remat: str = "none"):
+        """The decoder's input (B, S, D) and the encoder's output (or None):
+        token embeddings, the first ``n_patches`` positions overwritten by
+        the projected ``patches``, and for an encoder-decoder the encoded
+        ``frames`` and sinusoidal positions added."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
+        if cfg.n_patches and patches is not None:
+            patches = torch.as_tensor(patches, device=self.device)
+            if patches.shape[1] > s:
+                raise ValueError(f"{cfg.name}: {patches.shape[1]} patches do not fit "
+                                 f"a sequence of {s} tokens")
+            pe = patches.to(self.dtype) @ self.patch_proj.to(self.dtype)
+            x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        if not cfg.is_encdec:
+            return x, None
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs frames")
+        enc_out = self._encode(torch.as_tensor(frames, device=self.device).to(self.dtype),
+                               remat)
+        positions = self._positions(b, s)
+        return x + layers.sinusoidal_positions(positions, cfg.d_model).to(self.dtype), enc_out
+
+    def _encode(self, frames: torch.Tensor, remat: str) -> torch.Tensor:
+        """``repro``'s ``_encode``: sinusoidal positions on the frames, the
+        non-causal layers (each under ``remat``), the encoder's final norm."""
+        cfg = self.cfg
+        b, f, _ = frames.shape
+        positions = self._positions(b, f)
+        x = frames + layers.sinusoidal_positions(positions, cfg.d_model).to(frames.dtype)
+        for layer in self.enc.blocks:
+            def body(x, layer=layer):
+                return _layer_forward(cfg, layer, x, positions, causal=False)[0]
+            x = _maybe_remat(remat, body)(x)
+        return layers.apply_norm(cfg, self.enc.final_norm, x)
+
+    def _run(self, tokens: torch.Tensor, emit_caches: bool, patches=None, frames=None):
         cfg = self.cfg
         self._bf16_params()
         b, s = tokens.shape
         positions = self._positions(b, s)
-        x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
+        x, enc_out = self._embed(tokens, patches, frames)
         caches = [] if emit_caches else None
         for layer in self.layers:
-            x, _, c = _layer_forward(cfg, layer, x, positions, emit_caches)
+            x, _, c = _layer_forward(cfg, layer, x, positions, emit_caches, enc_out)
             if emit_caches:
-                caches.append(_ring_compress(cfg, layer.spec, c))
+                caches.append(c)
         return layers.apply_norm(cfg, self.final_norm, x), caches
 
-    def train_hidden(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The forward the losses differentiate: (B, S) tokens -> (final-norm
-        hidden states (B, S, D), the summed MoE aux loss, fp32).
+    def train_hidden(self, tokens, *, patches=None, frames=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The forward the losses differentiate: (B, S) tokens (and the
+        config's ``patches`` or ``frames``) -> (final-norm hidden states
+        (B, S, D), the summed MoE aux loss, fp32).
 
-        Big weights are cast to bf16 once, inside the graph; each layer runs
-        under ``cfg.remat_policy``.  The casts stay referenced until
-        :meth:`release_step` or the next call, since a rematerialized layer
-        reads them again in the backward pass.
+        Big weights are cast to bf16 once, inside the graph; each layer,
+        the encoder's too, runs under ``cfg.remat_policy``.  The casts stay
+        referenced until :meth:`release_step` or the next call, since a
+        rematerialized layer reads them again in the backward pass.
         """
         cfg = self.cfg
         self._cast_for_step()
         tokens = self._tokens(tokens)
         b, s = tokens.shape
         positions = self._positions(b, s)
-        x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
+        x, enc_out = self._embed(tokens, patches, frames, cfg.remat_policy)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
             def body(x, layer=layer):
-                x, a, _ = _layer_forward(cfg, layer, x, positions)
+                x, a, _ = _layer_forward(cfg, layer, x, positions, enc_out=enc_out)
                 return x, a
             x, a = _maybe_remat(cfg.remat_policy, body)(x)
             if a is not None:
@@ -254,21 +336,22 @@ class Transformer(nn.Module):
         return layers.apply_norm(cfg, self.final_norm, x), aux
 
     @torch.no_grad()
-    def forward(self, tokens, *, last_only: bool = False,
+    def forward(self, tokens, *, patches=None, frames=None, last_only: bool = False,
                 return_hidden: bool = False) -> torch.Tensor:
         """(B, S) tokens -> logits (B, S, Vp), or (B, 1, Vp) with
         ``last_only``, or the final-norm hidden states (B, S, D) with
-        ``return_hidden`` (no unembed)."""
-        x, _ = self._run(self._tokens(tokens), emit_caches=False)
+        ``return_hidden`` (no unembed).  ``patches`` (B, n_patches,
+        patch_dim) and ``frames`` (B, enc_frames, D) as the config needs."""
+        x, _ = self._run(self._tokens(tokens), False, patches, frames)
         if return_hidden:
             return x
         return layers.unembed(self.cfg, self.embed, x[:, -1:] if last_only else x)
 
     @torch.no_grad()
-    def prefill(self, tokens, *, with_hidden: bool = False):
+    def prefill(self, tokens, *, patches=None, frames=None, with_hidden: bool = False):
         """Run the full prompt; returns (last-token logits (B, Vp), caches),
         plus the last hidden state (B, D) with ``with_hidden``."""
-        x, caches = self._run(self._tokens(tokens), emit_caches=True)
+        x, caches = self._run(self._tokens(tokens), True, patches, frames)
         logits = layers.unembed(self.cfg, self.embed, x[:, -1:])[:, -1]
         if with_hidden:
             return logits, caches, x[:, -1]
@@ -298,10 +381,18 @@ class Transformer(nn.Module):
         if idx.ndim == 0:
             idx = idx.expand(b)
         x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
+        if cfg.is_encdec:
+            x = x + layers.sinusoidal_positions(idx[:, None], cfg.d_model).to(self.dtype)
         for layer, cache in zip(self.layers, caches):
             h = layers.apply_norm(cfg, layer.norm1, x)
-            a, _ = layers.attn_decode(cfg, layer.spec, layer.mixer, h, idx, cache)
+            if layer.spec.mixer == ATTN:
+                a, _ = layers.attn_decode(cfg, layer.spec, layer.mixer, h, idx, cache)
+            else:
+                a, _ = ssm.ssm_decode(cfg, layer.mixer, h, cache)
             x = x + a
+            if layer.spec.cross_attn:
+                h = layers.apply_norm(cfg, layer.norm_cross, x)
+                x = x + layers.cross_attn_decode(cfg, layer.cross, h, cache.cross)
             if layer.spec.ffn != NONE:
                 x, _ = _ffn(cfg, layer, x)
         x = layers.apply_norm(cfg, self.final_norm, x)
@@ -312,26 +403,33 @@ class Transformer(nn.Module):
 
     def make_decode_caches(self, batch: int, max_seq: int,
                            dtype: torch.dtype = torch.bfloat16) -> Caches:
-        """Empty decode caches (ring-sized for windowed layers)."""
+        """Empty decode caches (ring-sized for windowed layers; an SSM
+        layer's state fp32, its conv window in ``dtype``)."""
         return [layers.init_attn_cache(self.cfg, layer.spec, batch, max_seq, dtype,
                                        device=self.device)
+                if layer.spec.mixer == ATTN else
+                ssm.init_ssm_cache(self.cfg, batch, dtype, device=self.device)
                 for layer in self.layers]
 
     def pad_caches(self, caches: Caches, max_seq: int) -> Caches:
         """Grow prefill-emitted full-attention caches to ``max_seq`` slots
         (pos -1), and trim windowed rings longer than ``max_seq`` (their
-        positions sit at slots ``pos < max_seq`` then)."""
+        positions sit at slots ``pos < max_seq`` then).  SSM and cross
+        caches are final-sized and pass through."""
         out = []
         for layer, c in zip(self.layers, caches):
+            if layer.spec.mixer != ATTN:
+                out.append(c)
+                continue
             window, cur = layer.spec.window, c.k.shape[1]
             if window == 0 and cur < max_seq:
                 grow = max_seq - cur
                 pad = (0, 0, 0, 0, 0, grow)
-                c = AttnCache(k=F.pad(c.k, pad), v=F.pad(c.v, pad),
-                              pos=F.pad(c.pos, (0, grow), value=-1))
+                c = dataclasses.replace(c, k=F.pad(c.k, pad), v=F.pad(c.v, pad),
+                                        pos=F.pad(c.pos, (0, grow), value=-1))
             elif window > 0 and cur > max_seq:
-                c = AttnCache(k=c.k[:, :max_seq], v=c.v[:, :max_seq],
-                              pos=c.pos[:, :max_seq])
+                c = dataclasses.replace(c, k=c.k[:, :max_seq], v=c.v[:, :max_seq],
+                                        pos=c.pos[:, :max_seq])
             out.append(c)
         return out
 
@@ -350,6 +448,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         model.final_norm.reset()
         for layer in model.layers:
             layer.reset(generator)
+        if cfg.is_encdec:
+            model.enc.reset(generator)
+        if cfg.n_patches:
+            model.patch_proj.copy_(torch.randn(model.patch_proj.shape, generator=generator,
+                                               device=model.device) * 0.02)
     model._bf16_params()
     return model
 
@@ -370,7 +473,7 @@ def _ring_compress(cfg: ModelConfig, spec: LayerSpec, c: AttnCache) -> AttnCache
     v[:, slots] = c.v[:, s - keep_pos.numel():]
     pos = torch.full((b, w), -1, dtype=torch.int32, device=c.k.device)
     pos[:, slots] = keep_pos.to(torch.int32)
-    return AttnCache(k=k, v=v, pos=pos)
+    return dataclasses.replace(c, k=k, v=v, pos=pos)
 
 
 # ---------------------------------------------------------------------------
@@ -429,9 +532,11 @@ def chunked_lm_loss(model: Transformer, x: torch.Tensor, labels: torch.Tensor,
 
 def train_loss(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """``repro``'s ``train_loss``: the chunked NLL of ``batch["tokens"]``
+    (with ``batch["patches"]`` and ``batch["frames"]`` where present)
     against ``batch["labels"]`` under ``batch["mask"]``, plus 0.01 x the
     MoE aux loss.  Differentiable in the model's weights."""
-    x, aux = model.train_hidden(batch["tokens"])
+    x, aux = model.train_hidden(batch["tokens"], patches=batch.get("patches"),
+                                frames=batch.get("frames"))
     dev = model.device
     loss = chunked_lm_loss(model, x, torch.as_tensor(batch["labels"], device=dev),
                            torch.as_tensor(batch["mask"], device=dev))

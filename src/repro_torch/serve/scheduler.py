@@ -4,7 +4,8 @@ The engine multiplexes a stream of requests onto ``n_slots`` persistent
 decode lanes:
 
 * a new request prefills into a free lane (its caches are copied into
-  that lane's rows);
+  that lane's rows: k, v and pos of an attention layer, the state ``h``
+  and the conv window of an SSM layer);
 * every engine step decodes ALL lanes in one ``decode_step`` call: lanes
   sit at different positions, so the caches are lane-major with a ``pos``
   row a lane, and the step takes a ``(n_slots,)`` position vector (each
@@ -16,7 +17,9 @@ decode lanes:
 (B, Vp) and final hidden state (B, D); the default is greedy.  ``repro``'s
 closure takes the logits alone; the hidden state is what lets it compose
 with the kNN-LM mix (:func:`knn_lm_sampler`).  One card has no mesh, so
-``repro``'s ``rules`` argument is gone.
+``repro``'s ``rules`` argument is gone.  As ``repro``'s, the engine passes
+no frames or patches to prefill, so it serves the decoder-only configs
+(dense, MoE, Mamba-2 and the hybrid).
 """
 
 from __future__ import annotations
@@ -69,6 +72,15 @@ class _Slot:
     remaining: int = 0
 
 
+def _copy_lane(lane, one, i: int) -> None:
+    """Row 0 of every tensor of the batch-1 cache ``one`` into row ``i`` of
+    the lane-major cache ``lane`` (an attention or an SSM cache)."""
+    for f in dataclasses.fields(lane):
+        dst = getattr(lane, f.name)
+        if isinstance(dst, torch.Tensor):
+            dst[i] = getattr(one, f.name)[0]
+
+
 class ContinuousBatchingEngine:
     def __init__(self, model: Transformer, n_slots: int = 4, max_seq: int = 128,
                  sample: Optional[Sampler] = None):
@@ -114,9 +126,7 @@ class ContinuousBatchingEngine:
                                                      with_hidden=True)
         caches1 = self.model.pad_caches(caches1, self.max_seq)
         for lane, one in zip(self.caches, caches1):
-            lane.k[i] = one.k[0]
-            lane.v[i] = one.v[0]
-            lane.pos[i] = one.pos[0]
+            _copy_lane(lane, one, i)
         tok = int(self.sample(logits, hidden)[0])
         self.next_tok[i] = tok
         self.slots[i] = _Slot(req=req, pos=len(req.prompt),

@@ -82,7 +82,8 @@ def test_hamming_rows_indexed_kernel_exact(gen, q, k, w, n, idx_dtype, table_off
     assert hamming_rows.launches == before + 2
 
 
-@pytest.mark.parametrize("q,c,d", [(2048, 1920, 384), (37, 333, 61), (3, 1025, 8), (2, 5, 1)])
+@pytest.mark.parametrize("q,c,d", [(2048, 1920, 384), (37, 333, 61), (3, 1025, 8), (2, 5, 1),
+                                   (3, 300, 3208)])  # the narrowest D in tiles
 def test_qdist_windows_kernel_within_contract(gen, q, c, d):
     w = -(-d // 8)
     queries = torch.randn(q, d, generator=gen, device="cuda")
@@ -310,6 +311,12 @@ def _window_case(gen, q, s, window, d, n, word_offset):
     (9, 53, 5, 61, 400, 0),       # ragged last word, 265 candidates
     (5, 7, 5, 100, 50, 0),        # W = 13: 4-byte copies; 35 candidates
     (3, 1, 1, 8, 1, 0),           # one row
+    # Past D 3,200 the dims go in tiles of 1,024 with the partial sums in
+    # a scratch buffer: jamba's d_model, a ragged last tile at 4-byte
+    # copies, the zoo's widest.
+    (16, 384, 5, 4096, 5000, 0),
+    (5, 37, 5, 4100, 300, 1),
+    (2, 64, 5, 18432, 400, 0),
 ])
 def test_qdist_windows_rows_kernel_within_contract(gen, q, s, window, d, n, word_offset):
     """Windows read from the resident codes against the plain version

@@ -11,8 +11,9 @@ over by ``params_from_jax``) on the same numpy-seeded tokens, on the CPU:
 * the port alone: prefill then decode equals the forward pass, also for a
   prompt shorter than a local window (where ``repro``'s cache is wrong);
 * the configs: every field of all ten, ``param_count`` at published
-  scale, the shape rules; the unported families raise naming their
-  ROADMAP item.
+  scale, the shape rules (Mamba-2, the hybrid, the encoder-decoder and
+  patch inputs are held to ``repro`` in ``tests/test_torch_ssm.py`` and
+  ``tests/test_torch_encdec.py``).
 
 The MoE decoders (granite_moe_1b, mixtral_8x22b) run the fp32 checks at
 their smoke configs' drop-free capacity.  The bf16 checks stay with the
@@ -43,8 +44,6 @@ BF16_TOL = 2e-2
 DENSE_PARITY_ARCHS = ("gemma3_1b", "granite_3_8b")
 PARITY_ARCHS = DENSE_PARITY_ARCHS + ("granite_moe_1b", "mixtral_8x22b")
 DENSE_ARCHS = ("yi_34b", "gemma3_1b", "nemotron_4_340b", "granite_3_8b")
-UNPORTED = {"mamba2_780m": "13c", "jamba_v01_52b": "13c", "whisper_small": "13d",
-            "llava_next_34b": "13d"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -246,12 +245,6 @@ def test_configs_and_param_counts_equal_repro(arch):
         for shape in jconfigs.SHAPES:
             assert tconfigs.shape_applicable(t, shape) == jconfigs.shape_applicable(j, shape)
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS and tconfigs.SHAPES == jconfigs.SHAPES
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise_naming_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md module {UNPORTED[arch]}"):
-        tmodel.Transformer(tconfigs.get_config(arch, smoke=True), device="cpu")
 
 
 def test_entry_points_raise_without_a_gpu():
