@@ -26,7 +26,7 @@ equal those on the CPU, then drives the paths at full width on
   launch, against the launch that reads the windows from the codes.
 * The paper's Table 1 (phase ``table1``: ``repro_torch.benchmarks.
   task1_table1``): its 16 rows (160 and 120 trees of the PUBMED23 forest,
-  k1 up to 4000) on the first 500,000 points and the first 2048
+  k1 up to 4000) on the first 125,000 points and the first 2048
   queries, one timed search a row after a warm-up search a forest, scored
   against their exact neighbours among those points.
 * LSM (phase ``lsm``): ``MutableHilbertIndex`` with the same forest and
@@ -153,12 +153,28 @@ equal those on the CPU, then drives the paths at full width on
   ``vlm_full_width`` runs llava_next_34b's widths cut to 8 of 60 layers on
   4,096 tokens whose first 2,880 are patches (forward, prefill, decode).
 
+* The distribution layer, after the zoo (``repro_torch.sharding``,
+  ``launch/shardings.py``, ``launch/dryrun.py``; no kernel is on it): phase
+  ``moe_ep`` spawns 4 ranks on the one card over gloo and runs the
+  expert-parallel MoE (``moe_forward_ep``) with the dense layers
+  replicated, each check held within 1e-4 / 1e-5 of a single-process run
+  on the card in fp32: mixtral_8x22b's MoE layer at its published widths
+  (2 of 8 experts a rank, 2.4 GB) on a (1, 4) mesh, then granite_moe_1b at
+  full depth and width (8 of 32 experts a rank) on (1, 4) and (2, 2): its
+  logits, train_loss and every gradient; the (2, 2) case with
+  ``fsdp="data"`` runs where a probe's functional all-gather over gloo on
+  CUDA tensors returns right.  Phase ``dryrun_on_card`` holds the dry
+  run's peak bytes and FLOPs of granite_moe_1b's train step at the smoke's
+  shape on a (1, 1) fake mesh (computed in a child process beside the
+  training phases) to ``torch.cuda.max_memory_allocated`` (within 20 %)
+  and ``FlopCounterMode`` (within 10 %) of the real step.
+
 Before them, phase ``device_parity_engine`` runs the same engine
-operations on the CPU and on the card at 10,000 rows (step-mode searches,
+operations on the CPU and on the card at 6,000 rows (step-mode searches,
 writes, a forced maintenance in a thread and in a compactor child on the
 same device): state bit-equal between devices and modes; and phase
 ``sharded_device_parity`` builds a 4-shard index on both devices at
-10,000 rows: state bit-equal, each merge and the unmerged search within
+6,000 rows: state bit-equal, each merge and the unmerged search within
 the distance contract, save -> load bit-equal, the 4 -> 1 reshard's state
 bit-equal across devices; and phase ``sharded_lsm_device_parity`` streams
 a 4-shard ``ShardedMutableHilbertIndex`` on both devices (seals, tier
@@ -267,9 +283,10 @@ ENGINE_SERIES = [
 # chunk, so fewer queries would save no time on a launch-bound search.
 TABLE1_QUERIES = 2048
 # Its rows (a cut of depth from the corpus's 3,000,000: 1,000,000 to pay
-# for the kNN-LM phases, 500,000 for the rest of the model zoo): the first
-# TABLE1_ROWS, with their own exact neighbours.
-TABLE1_ROWS = 500_000
+# for the kNN-LM phases, 500,000 for the rest of the model zoo, 125,000 for
+# the distribution phases): the first TABLE1_ROWS, with their own exact
+# neighbours.
+TABLE1_ROWS = 125_000
 TABLE1_TIMED_SEARCHES = 1  # a row; the module's default of 3 took ~100 s more
 CHUNK_QUERIES = 2048  # one query chunk: the bundle checks' queries
 
@@ -285,11 +302,12 @@ WIDE_DIMS = (4096, 7168, 18432)
 WIDE_CHECK_QUERIES = 8
 WIDE_ROWS = 1 << 16
 # Rows of the cuda-vs-cpu checks (cut from 20,000 to pay for the kNN-LM
-# phases), and the write buffers that keep every stage they check firing
-# at that size: seals, tier merges, a read-triggered rewrite.
-PARITY_ROWS = 10_000
-PARITY_BUFFER = 1024  # device_parity_lsm, device_parity_engine (2048 at 20,000)
-PARITY_SHARD_BUFFER = 256  # sharded_lsm_device_parity, a shard (512 at 20,000)
+# phases, from 10,000 for the distribution phases), and the write buffers
+# that keep every stage they check firing at that size: seals, tier
+# merges, a read-triggered rewrite.
+PARITY_ROWS = 6_000
+PARITY_BUFFER = 512  # device_parity_lsm, device_parity_engine (1024 at 10,000)
+PARITY_SHARD_BUFFER = 128  # sharded_lsm_device_parity, a shard (256 at 10,000)
 MERGE_CHUNK = 1 << 16  # rows of one Task-2 merge pass (knn_graph's default)
 
 # Table 1's kernel shapes (pubmed23.TABLE1, 2048 queries a search): stage 1
@@ -414,6 +432,20 @@ VLM_LEN = 4096  # its first 2,880 positions are the patches
 ZOO_FULL_RTOL, ZOO_FULL_ATOL_OF_SCALE = 1e-4, 5e-4
 RESUME_AT, RESUME_STEPS = 2, 4
 H100_BF16_DENSE_FLOPS = 989e12  # NVIDIA H100 SXM data sheet, dense bf16, 700 W
+# The distribution layer (phases moe_ep and dryrun_on_card).  moe_ep: four
+# ranks on the one card over gloo (NCCL takes one card a rank) run the
+# expert-parallel MoE with the dense layers replicated (EP alone: the
+# experts' all-reduces are then its only collectives), each held to a
+# single-process run on the same card in fp32.
+MOE_EP_RANKS = 4
+MOE_EP_LAYER_ARCH = "mixtral_8x22b"  # its MoE layer at published widths, mesh (1, 4)
+MOE_EP_LAYER_TOKENS = (2, 512)
+MOE_EP_TOKENS = (2, 256)  # granite_moe_1b's batch, two rows a data rank at (2, 2)
+MOE_EP_MESHES = ((1, 4, None), (2, 2, None), (2, 2, "data"))  # (data, model, fsdp)
+MOE_EP_TOL = (1e-4, 1e-5)
+# dryrun_on_card: the dry run of granite_moe_1b's train step at the smoke's
+# shape on a (1, 1) fake mesh against the real step on the card.
+DRYRUN_PEAK_TOL, DRYRUN_FLOPS_TOL = 0.20, 0.10
 
 
 def kernel_fns():
@@ -2600,7 +2632,7 @@ def phase_sharded_lsm_device_parity(torch, cfg, pts, seed: int):
     n = pts.shape[0]
     queries = ann_datasets.lowrank_embeddings(16, 384, seed=seed + 3)
     # A stage-2 pool of 128 x 5 = 640 rows: deleting all but 100 of one
-    # shard's base rows (1,400 at 10,000 rows) must pass it to rewrite.
+    # shard's base rows (~800 at 6,000 rows) must pass it to rewrite.
     params = SearchParams(k1=48, k2=128, h=2, k=30)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -3323,15 +3355,6 @@ def phase_knn_lm(torch, seed: int) -> tuple:
 
     lookup_s = uncounted(torch, lookup_times)
     plain = serve.decode(model, prompts, KNN_ENGINE_STEPS)  # no retrieval
-    uncounted(torch, lambda: phase_profile(
-        torch, lambda: store.lookup(hids[-1], serve.SEARCH), "knn_lm_lookup_profile",
-        cpu_ops=True, queries=hids[-1].shape[0]))
-    _, caches = model.prefill(prompts)
-    caches = model.pad_caches(caches, KNN_PROMPTS[1] + 1)
-    phase_profile(torch, lambda: model.decode_step(plain["tokens"][:, :1], KNN_PROMPTS[1],
-                                                   caches),
-                  "knn_lm_decode_profile", cpu_ops=True, queries=KNN_PROMPTS[0])
-    del caches
     rep = store.memory_report()
 
     eng = store.serving_engine(serve.SEARCH, maintenance=MaintenancePolicy(), start=True)
@@ -4250,6 +4273,385 @@ def phase_zoo(torch, seed: int) -> dict:
     return launches
 
 
+def ep_rules(mesh, fsdp):
+    """Expert parallelism alone on ``mesh``: the experts over the model axis,
+    rows over the data axis, the dense layers replicated."""
+    from repro_torch.sharding import make_rules
+
+    return make_rules(mesh, heads=None, kv_heads=None, mlp=None, vocab=None, fsdp=fsdp)
+
+
+def moe_ep_layer(torch, cfg, experts, seed: int, device="cuda"):
+    """The MoE layer check's router, the weights of ``experts`` (each
+    expert from its own generator, so a rank draws its own alone) and its
+    input x."""
+    d, f = cfg.d_model, cfg.d_ff
+
+    def draw(shape, s, scale):
+        g = torch.Generator(device=device).manual_seed(s)
+        return torch.randn(shape, generator=g, device=device) * scale
+
+    w = {"router": draw((d, cfg.n_experts), seed, d ** -0.5)}
+    for i, (name, shape, scale) in enumerate((("w1", (d, f), d ** -0.5),
+                                              ("w2", (f, d), f ** -0.5),
+                                              ("w3", (d, f), d ** -0.5))):
+        w[name] = torch.stack([draw(shape, seed * 1000 + 10 * e + i, scale) for e in experts])
+    return w, draw((*MOE_EP_LAYER_TOKENS, d), seed + 1, 1.0)
+
+
+def moe_module(cfg, weights: dict):
+    """A ``MoE`` holding ``weights`` (plain tensors or DTensors) without
+    allocating its own."""
+    from torch import nn
+
+    from repro_torch.models.moe import MoE
+
+    p = MoE(cfg, "meta")
+    for name, t in weights.items():
+        p.register_parameter(name, nn.Parameter(t, requires_grad=True))
+    return p
+
+
+def moe_ep_batch(torch, cfg, seed: int) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    toks = torch.randint(0, cfg.vocab_size, MOE_EP_TOKENS, generator=g, device="cuda")
+    return {"tokens": toks, "labels": toks.roll(-1, dims=1),
+            "mask": torch.ones(MOE_EP_TOKENS, device="cuda")}
+
+
+def moe_ep_reference(torch, seed: int, path: str) -> dict:
+    """The single-process runs on the card that the ranks are held to,
+    saved to ``path``: the MoE layer's output, aux and gradients of x and
+    the router; granite_moe_1b's logits, train_loss and every gradient."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params, train_loss
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(MOE_EP_LAYER_ARCH), compute_dtype="float32")
+    w, x = moe_ep_layer(torch, cfg, range(cfg.n_experts), seed)
+    p = moe_module(cfg, w)
+    x.requires_grad_(True)
+    out, aux = moe.moe_forward(cfg, p, x)
+    gx, gr = torch.autograd.grad(1e-3 * (out ** 2).sum() + aux, [x, p.router])
+    layer = {"out": out.detach().cpu(), "aux": aux.detach().cpu(), "g_x": gx.cpu(),
+             "g_router": gr.cpu()}
+    layer_gb = sum(t.nbytes for t in w.values()) / 1e9
+    del w, p, x, out, gx, gr
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH), compute_dtype="float32")
+    m = init_params(cfg, seed, device="cuda").requires_grad_(True)
+    batch = moe_ep_batch(torch, cfg, seed)
+    logits = m(batch["tokens"])
+    loss = train_loss(m, batch)
+    names, params = zip(*m.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    m.release_step()
+    torch.save({"layer": layer, "logits": logits.cpu(), "loss": loss.detach().cpu(),
+                "grads": {n: g.cpu() for n, g in zip(names, grads)}}, path)
+    torch.cuda.synchronize()
+    return {"layer_weights_gb": layer_gb, "seconds": time.perf_counter() - t0}
+
+
+def _local_ref(full, dt):
+    """The slice of ``full`` that DTensor ``dt``'s rank holds."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(full.shape, dt.device_mesh,
+                                                          dt.placements)
+    return full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def _errors(torch, pairs) -> dict:
+    """(max abs error, within MOE_EP_TOL) over (DTensor, reference) pairs,
+    each on this rank's shard (partial sums added up first)."""
+    from torch.distributed.tensor import Replicate
+
+    worst, within = 0.0, True
+    for dt, full in pairs:
+        dt = dt.redistribute(dt.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in dt.placements])
+        got = dt.to_local().detach()
+        want = _local_ref(full, dt).to(got.device)
+        worst = max(worst, float((got - want).abs().max()))
+        within &= bool(torch.allclose(got, want, rtol=MOE_EP_TOL[0], atol=MOE_EP_TOL[1]))
+    return {"max_abs_err": worst, "within": within}
+
+
+def moe_ep_rank(rank: int, port: int, ref_path: str, seed: int, cases, out_path: str):
+    """One of the MOE_EP_RANKS ranks of phase moe_ep (a spawned process)."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.launch import shardings
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_params, train_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=MOE_EP_RANKS)
+    ref = torch.load(ref_path, mmap=True, map_location="cpu", weights_only=True)
+    rows = []
+
+    # mixtral_8x22b's MoE layer at (1, 4): each rank draws its own experts
+    cfg = dataclasses.replace(configs.get_config(MOE_EP_LAYER_ARCH), compute_dtype="float32")
+    mesh = init_device_mesh("cuda", (1, MOE_EP_RANKS), mesh_dim_names=("data", "model"))
+    e_loc = cfg.n_experts // MOE_EP_RANKS
+    first = mesh.get_local_rank("model") * e_loc
+    w, x = moe_ep_layer(torch, cfg, range(first, first + e_loc), seed)
+    rep, exp = [Replicate(), Replicate()], [Replicate(), Shard(0)]
+    p = moe_module(cfg, {k: DTensor.from_local(v, mesh, rep if k == "router" else exp,
+                                               run_check=False) for k, v in w.items()})
+    xd = DTensor.from_local(x, mesh, rep, run_check=False).requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, aux = moe.moe_forward(cfg, p, xd, ep_rules(mesh, None))
+    gx, gr = torch.autograd.grad(1e-3 * (out ** 2).sum() + aux, [xd, p.router])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    r = ref["layer"]
+    rows.append({"check": "layer", "arch": cfg.name, "mesh": [1, MOE_EP_RANKS],
+                 "experts_a_rank": e_loc, "rank_weights_gb": sum(
+                     t.nbytes for t in w.values()) / 1e9,
+                 "seconds": seconds, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 **_errors(torch, [(out, r["out"]), (aux, r["aux"]), (gx, r["g_x"]),
+                                   (gr, r["g_router"])])})
+    del w, x, p, xd, out, gx, gr
+    torch.cuda.empty_cache()
+
+    # granite_moe_1b at full depth and width, every case
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH), compute_dtype="float32")
+    for data, model_axis, fsdp in cases:
+        mesh = init_device_mesh("cuda", (data, model_axis), mesh_dim_names=("data", "model"))
+        rules = ep_rules(mesh, fsdp)
+        m = init_params(cfg, seed, device="cuda").requires_grad_(True)
+        shardings.distribute(m, rules)
+        batch = shardings.distribute_batch(moe_ep_batch(torch, cfg, seed), rules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with implicit_replication():
+            logits = m(batch["tokens"], rules=rules)
+            loss = train_loss(m, batch, rules)
+            names, params = zip(*m.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            m.release_step()
+            # partial sums over the data axis, summed into the weights' layout
+            grads = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(grads, params)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        pairs = [(logits, ref["logits"]), (loss, ref["loss"])]
+        pairs += [(g, ref["grads"][n]) for n, g in zip(names, grads)]
+        rows.append({"check": "decoder", "arch": cfg.name, "mesh": [data, model_axis],
+                     "fsdp": fsdp, "layers": cfg.n_layers, "experts": cfg.n_experts,
+                     "experts_a_rank": cfg.n_experts // model_axis,
+                     "rank_param_gb": sum(p.to_local().nbytes for p in params) / 1e9,
+                     "seconds": seconds, **_errors(torch, pairs)})
+        del m, batch, logits, loss, grads, params
+        torch.cuda.empty_cache()
+
+    # every rank's worst error and verdict, on rank 0
+    worst = torch.tensor([[row["max_abs_err"], 0.0 if row["within"] else 1.0] for row in rows],
+                         device="cuda")
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    if rank == 0:
+        for row, (err, bad) in zip(rows, worst.tolist()):
+            row.update(max_abs_err=err, within=not bad)
+        with open(out_path, "w") as f:
+            json.dump(rows, f)
+    dist.destroy_process_group()
+
+
+def gloo_gather_probe_child() -> int:
+    """Two ranks on the one card all-gather a CUDA tensor over gloo with a
+    functional collective (what DTensor's gathers, and so ZeRO-3 weights,
+    use).  Exits 0 when the result is right."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_gloo_gather_rank, args=(_free_port(),), nprocs=2)
+    return 0
+
+
+def _gloo_gather_rank(rank: int, port: int) -> None:
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    t = torch.full((4,), float(rank), device="cuda")
+    out = funcol.wait_tensor(funcol.all_gather_tensor(t, 0, [0, 1]))
+    if out.tolist() != [0.0] * 4 + [1.0] * 4:
+        raise AssertionError(f"gathered {out.tolist()}")
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_gather_probe():
+    """Start ``gloo_gather_probe_child`` (it spawns two ranks on the card)
+    to run beside the card's phases."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-gather-probe"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_moe_ep(torch, seed: int, probe) -> None:
+    """Expert parallelism on MOE_EP_RANKS gloo ranks of the one card (EP
+    alone, ``ep_rules``), against single-process runs on the same card in
+    fp32 (MOE_EP_TOL): mixtral_8x22b's MoE layer at its published widths
+    (8 experts of d 6,144 x f 16,384, top-2; two experts a rank, each rank
+    drawing only its own) on a (1, 4) mesh, its output, aux and the
+    gradients of x and the router; granite_moe_1b at full depth and width
+    (24 layers, 32 experts, 8 a rank) on (1, 4), then on (2, 2) (rows over
+    data), then on (2, 2) with ``fsdp="data"``: the logits, train_loss and
+    every gradient.  The fsdp case needs DTensor's all-gathers, which on
+    gloo are functional collectives: ``probe`` (``start_gather_probe``,
+    started before the training phases) runs one, and the case runs only
+    where it returned right (it killed its process with SIGSEGV under torch
+    2.11 on an H100)."""
+    out_dir = os.path.join(ROOT, "build", "moe_ep")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t_phase = time.perf_counter()
+    try:
+        ref_path = os.path.join(out_dir, "reference.pt")
+        reference = moe_ep_reference(torch, seed, ref_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, probe_err = probe.communicate(timeout=300)
+        cases = [c for c in MOE_EP_MESHES if probe.returncode == 0 or c[2] is None]
+        import torch.multiprocessing as mp
+
+        rows_path = os.path.join(out_dir, "rows.json")
+        t0 = time.perf_counter()
+        mp.spawn(moe_ep_rank, args=(_free_port(), ref_path, seed, cases, rows_path),
+                 nprocs=MOE_EP_RANKS)
+        ranks_s = time.perf_counter() - t0
+        with open(rows_path) as f:
+            rows = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    skipped = [list(c) for c in MOE_EP_MESHES if c not in cases]
+    emit({"phase": "moe_ep", "ranks": MOE_EP_RANKS, "backend": "gloo", "device": "cuda",
+          "rules": "expert parallelism alone (dense layers replicated)", "dtype": "float32",
+          "rtol_atol": MOE_EP_TOL, "gloo_functional_all_gather": {
+              "returncode": probe.returncode, "stderr_tail": probe_err[-300:]},
+          "skipped_cases": skipped, "reference": reference, "checks": rows,
+          "ranks_seconds": ranks_s, "seconds": time.perf_counter() - t_phase})
+    bad = [r for r in rows if not r["within"]]
+    if bad:
+        raise AssertionError(f"moe_ep: beyond {MOE_EP_TOL}: {bad}")
+
+
+def dryrun_child(out_path: str) -> int:
+    """The dry run's side of phase dryrun_on_card, in its own process (it
+    joins a fake process group): granite_moe_1b's published config, one
+    train step of TRAIN_BATCH in TRAIN_MICRO microbatches on a (1, 1) fake
+    mesh.  Writes the cell's record."""
+    sys.path.insert(0, SRC)
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.sharding import make_rules
+    from repro_torch.train import TrainConfig
+
+    cfg = configs.get_config(MOE_ARCH)
+    rules = make_rules(dryrun.fake_mesh((1, 1), ("data", "model")))
+    tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(lr=TRAIN_LR))
+    t0 = time.perf_counter()
+    rec = dryrun.cell_record(cfg, "train", TRAIN_BATCH[1], TRAIN_BATCH[0], rules, tcfg,
+                             6.0 * cfg.active_param_count() * TRAIN_BATCH[0] * TRAIN_BATCH[1])
+    rec["wall_s"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def start_dryrun_child():
+    """Start ``dryrun_child`` (CPU work) to run beside the card's phases."""
+    path = os.path.join(ROOT, "build", "smoke_dryrun.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dryrun-child", path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    return proc, path
+
+
+def phase_dryrun_on_card(torch, seed: int, child) -> None:
+    """The dry run's peak bytes a rank and FLOPs for granite_moe_1b's train
+    step at the smoke's shape on a (1, 1) fake mesh (``dryrun_child``),
+    against the same step on the card: ``torch.cuda.max_memory_allocated``
+    of a step after a warm-up one (within DRYRUN_PEAK_TOL) and the step's
+    FLOPs by ``FlopCounterMode`` (within DRYRUN_FLOPS_TOL).  The model
+    FLOPs of ``train_full_width`` (6 N_active tokens plus causal attention)
+    stand beside them."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    proc, path = child
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(MOE_ARCH)
+    tcfg = TrainConfig(n_microbatches=TRAIN_MICRO, optimizer=OptimizerConfig(lr=TRAIN_LR))
+    state = init_train_state(cfg, tcfg, seed, device="cuda")
+    step = make_train_step(cfg, tcfg)
+    pipe = TokenPipeline(DataConfig(cfg.vocab_size, *TRAIN_BATCH, seed=seed))
+    state, _ = step(state, pipe.torch_batch(0, "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        state, _ = step(state, pipe.torch_batch(1, "cuda"))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flops = counter.get_total_flops()
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun_on_card: the dry run exited {proc.returncode}: "
+                             f"{err[-3000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    os.remove(path)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dryrun_on_card: the dry run's cell: {rec.get('reason')}")
+    tokens = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    model = 6 * cfg.active_param_count() * tokens + 3 * TRAIN_BATCH[0] * attention_flops(
+        cfg, TRAIN_BATCH[1])
+    peak_ratio = rec["memory"]["peak_bytes"] / peak
+    flops_ratio = rec["flops_per_device"] / flops
+    emit({"phase": "dryrun_on_card", "arch": cfg.name, "mesh": rec["mesh_shape"],
+          "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+          "peak_bytes": {"dry_run": rec["memory"]["peak_bytes"], "card": peak,
+                         "ratio": peak_ratio, "tol": DRYRUN_PEAK_TOL},
+          "flops": {"dry_run": rec["flops_per_device"], "card": flops, "ratio": flops_ratio,
+                    "tol": DRYRUN_FLOPS_TOL, "model_6n_plus_attention": model},
+          "dry_run": {k: rec[k] for k in ("bytes_per_device", "collective_bytes_per_device",
+                                          "compute_term_s", "memory_term_s",
+                                          "collective_term_s", "dominant_term", "wall_s")},
+          "seconds": time.perf_counter() - t_phase})
+    if abs(peak_ratio - 1) > DRYRUN_PEAK_TOL or abs(flops_ratio - 1) > DRYRUN_FLOPS_TOL:
+        raise AssertionError(f"dryrun_on_card: peak ratio {peak_ratio}, FLOPs ratio "
+                             f"{flops_ratio} beyond {DRYRUN_PEAK_TOL} / {DRYRUN_FLOPS_TOL}")
+
+
 def train_resume_child(ckpt_dir: str) -> int:
     """The body of phase train_resume, in its own process (cuBLAS reads
     CUBLAS_WORKSPACE_CONFIG when it initialises): gemma3_1b's widths cut to
@@ -4410,6 +4812,8 @@ def main(argv=None) -> int:
                     help="recall@15 the full-width graph must reach (the "
                          "default was set at --n 3000000 --seed 0, 80 orders)")
     ap.add_argument("--train-resume-child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-child", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-gather-probe", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -4424,6 +4828,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, SRC)
     if args.train_resume_child:
         return train_resume_child(args.train_resume_child)
+    if args.dryrun_child:
+        return dryrun_child(args.dryrun_child)
+    if args.gloo_gather_probe:
+        return gloo_gather_probe_child()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4499,10 +4907,19 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     launches.update(phase_lm(torch, args.seed, kernels))
     torch.cuda.empty_cache()
-    phase_train(torch, args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
-    launches.update(phase_zoo(torch, args.seed))
+    dry, probe = start_dryrun_child(), start_gather_probe()
+    try:
+        phase_train(torch, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches.update(phase_zoo(torch, args.seed))
+        phase_moe_ep(torch, args.seed, probe)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_dryrun_on_card(torch, args.seed, dry)
+    finally:
+        dry[0].kill()
+        probe.kill()
     next(r for r in kernels if r["name"] == "hamming_rows")["sharded_halo"] = {
         k: halo[k] for k in ("rows_a_shard", "k1", "distances_compared", "max_abs_err")}
     for row in kernels:

@@ -29,11 +29,19 @@ own ring slot ``pos % L`` (``repro`` vmaps batch-1 caches for that).
 cross-attention keeps its static cache of ``enc_frames`` slots in the self
 cache's ``cross`` field.  The MoE FFN is :mod:`repro_torch.models.moe`,
 the Mamba-2 mixer :mod:`repro_torch.models.ssm`.
+
+Each function takes ``rules`` (:class:`repro_torch.sharding.ShardingRules`;
+the default has no mesh and changes nothing).  With a mesh, weights and
+activations are DTensors (:mod:`repro_torch.launch.shardings`): the
+activations are constrained where ``repro`` calls ``shard``, the attention
+core and the cache writes run on each rank's shard (``local_map``), and
+the lookup of a table whole in vocab is DTensor's embedding op.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -42,6 +50,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.sharding import ShardingRules, shard
+
+RULES = ShardingRules()  # no mesh: every constraint below is a no-op
 
 _QUERY_CHUNK = 512  # query rows a chunk of full-sequence attention
 
@@ -187,24 +198,47 @@ class AttnCache:
     cross: Optional["AttnCache"] = None
 
 
-def _project_qkv(cfg, p: Attention, x, x_kv, positions, spec, is_cross):
-    b, s, _ = x.shape
-    sk = x_kv.shape[1]
+def _project_qkv(cfg, p: Attention, x, x_kv, positions, spec, is_cross, rules):
     dtype = x.dtype
-    q = (x @ p.w("wq", dtype)).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x_kv @ p.w("wk", dtype)).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
-    v = (x_kv @ p.w("wv", dtype)).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(x @ p.w("wq", dtype), cfg.n_heads, cfg.head_dim)
+    k = _split_heads(x_kv @ p.w("wk", dtype), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(x_kv @ p.w("wv", dtype), cfg.n_kv_heads, cfg.head_dim)
     if not is_cross and not cfg.is_encdec:
         q = rope(q, positions, spec.rope_theta)
         k = rope(k, positions, spec.rope_theta)
+    if not rules.attn_unconstrained:
+        # Inside the mixer seq is whole and heads carry the model axis; k and
+        # v shard by kv heads or replicate (the dh-sharded layout is for
+        # caches only, at the cache emit).
+        q = shard(q, rules, "batch", None, "heads", "head_dim")
+        k = shard(k, rules, "batch", None, "kv_heads", None)
+        v = shard(v, rules, "batch", None, "kv_heads", None)
     return q, k, v
 
 
-def _attend(cfg, q, k, v, mask):
+def _split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """(B, S, H Dh) -> (B, S, H, Dh).  A DTensor whose last dim is sharded
+    over a mesh axis that does not divide H is gathered on that axis first
+    (GSPMD pads such a split; a DTensor cannot make it)."""
+    if _is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = t.device_mesh
+        place = [Replicate() if isinstance(pl, Shard) and pl.dim == t.ndim - 1
+                 and heads % mesh.size(i) else pl for i, pl in enumerate(t.placements)]
+        if place != list(t.placements):
+            t = t.redistribute(mesh, place)
+    return t.reshape(*t.shape[:-1], heads, head_dim)
+
+
+def _attend(cfg, q, k, v, mask=None, rules=RULES):
     """q: (B,Sq,Hq,Dh), k/v: (B,Sk,Hkv,Dh), mask: broadcastable to
-    (B,Hkv,G,Sq,Sk) or None."""
+    (B,Hkv,G,Sq,Sk) or None.  On DTensors it runs on each rank's rows and
+    heads (:func:`_attend_local_map`)."""
+    if rules.mesh is not None and _is_dtensor(q):
+        return _attend_local_map(cfg, q, k, v, mask, rules)
     b, sq, hq, dh = q.shape
-    hkv = cfg.n_kv_heads
+    hkv = k.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * (1.0 / math.sqrt(dh))
     if mask is not None:
@@ -214,6 +248,112 @@ def _attend(cfg, q, k, v, mask):
     return out.reshape(b, sq, hq * dh)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _attend_local_map(cfg, q, k, v, mask, rules):
+    """:func:`_attend` on each rank's shard: batch rows over the batch axes,
+    and KV heads (with their query groups) over the model axis where both
+    head counts divide it, else replicated there.  A DTensor cannot run the
+    einsums itself: they flatten (batch, heads) into one dim sharded over
+    two mesh axes, which its batched matmul has no strategy for.  A cache
+    sharded by head_dim (``kv_head_dim``) is gathered here."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding import axis_size, batch_shard_axes, mesh_axis_names
+
+    mesh = rules.mesh
+    names = mesh_axis_names(mesh)
+    row_axes = batch_shard_axes(mesh, rules, q.shape[0])
+    b = q.shape[0]
+    place = []
+    for name in names:
+        n = axis_size(mesh, name)
+        if name in row_axes:
+            place.append(Shard(0))
+        elif (name == rules.heads and n > 1 and cfg.n_kv_heads % n == 0
+              and cfg.n_heads % n == 0):
+            place.append(Shard(2))
+        else:
+            place.append(Replicate())
+    place = tuple(place)
+    mask_place = None
+    if mask is not None:
+        mask = _replicated(mask, mesh)
+        mask_place = tuple(Shard(0) if p == Shard(0) and mask.shape[0] == b else Replicate()
+                           for p in place)
+    # the output (B, Sq, Hq * Dh) keeps the rows' and the heads' shards
+    args, in_place = (q, k, v), (place, place, place)
+    if mask is not None:
+        args, in_place = args + (mask,), in_place + (mask_place,)
+    fn = local_map(functools.partial(_attend, cfg), out_placements=list(place),
+                   in_placements=in_place, redistribute_inputs=True)
+    return fn(*args)
+
+
+def _replicated(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A plain tensor every rank holds whole, as a replicated DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if _is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _write_slot(buf: torch.Tensor, lanes: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``buf[lanes, slot] = new`` in place: row b's slot ``slot[b]`` of a
+    (B, L, ...) cache.  A DTensor cache is written on each rank's shard
+    (:func:`_write_slot_sharded`)."""
+    if _is_dtensor(buf):
+        _write_slot_sharded(buf, slot, new)
+    else:
+        buf[lanes, slot] = new
+
+
+def _write_slot_sharded(buf, slot, new) -> None:
+    """The write of :func:`_write_slot` on a DTensor cache, rank-locally:
+    the new row follows the cache's batch and head shards; where the slot
+    axis is sharded (``cache_seq``), the rank that holds the slot writes it
+    and the others write back what they hold (no data-dependent shapes)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = buf.device_mesh
+    new_place, slot_place, seq_dims = [], [], []
+    for i, pl in enumerate(buf.placements):
+        if isinstance(pl, Shard) and pl.dim == 0:
+            new_place.append(Shard(0))
+            slot_place.append(Shard(0))
+            continue
+        if isinstance(pl, Shard) and pl.dim == 1:
+            seq_dims.append(i)
+        new_place.append(Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim > 1
+                         else Replicate())
+        slot_place.append(Replicate())
+
+    def body(b, s, n):
+        length = b.shape[1]
+        offset = 0
+        for i in seq_dims:  # the slots this rank holds start here
+            offset = offset * mesh.size(i) + mesh.get_local_rank(i)
+        rel = s - offset * length
+        inside = (rel >= 0) & (rel < length)
+        rel = rel.clamp(0, length - 1)
+        rows = torch.arange(b.shape[0], device=b.device)
+        keep = b[rows, rel]
+        b[rows, rel] = torch.where(inside.reshape((-1,) + (1,) * (n.dim() - 1)), n, keep)
+        return b
+
+    local_map(body, out_placements=list(buf.placements),
+              in_placements=(buf.placements, tuple(slot_place), tuple(new_place)),
+              redistribute_inputs=True)(buf, _replicated(slot, mesh), _replicated(new, mesh))
+
+
 def _causal_mask(qpos, kpos, spec: LayerSpec):
     mask = kpos[None, :] <= qpos[:, None]
     if spec.window > 0:
@@ -221,7 +361,7 @@ def _causal_mask(qpos, kpos, spec: LayerSpec):
     return mask[None, None, None]
 
 
-def _attend_qchunked(cfg, q, k, v, qpos_row, kpos_row, spec, causal):
+def _attend_qchunked(cfg, q, k, v, qpos_row, kpos_row, spec, causal, rules=RULES):
     """Exact attention (causal or not) over query chunks of at most 512 rows.
 
     Each chunk's softmax axis (Sk) is complete, so chunking the query dim
@@ -236,13 +376,17 @@ def _attend_qchunked(cfg, q, k, v, qpos_row, kpos_row, spec, causal):
     for a in range(0, q.shape[1], _QUERY_CHUNK):
         mask = (_causal_mask(qpos_row[a : a + _QUERY_CHUNK], kpos_row, spec)
                 if causal else None)
-        out.append(_attend(cfg, q[:, a : a + _QUERY_CHUNK], k, v, mask))
-    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+        out.append(_attend(cfg, q[:, a : a + _QUERY_CHUNK], k, v, mask, rules))
+    out = out[0] if len(out) == 1 else torch.cat(out, dim=1)
+    if rules.attn_unconstrained:
+        return out
+    return shard(out, rules, "batch", None, "heads")
 
 
 def attn_forward(cfg: ModelConfig, spec: LayerSpec, p: Attention, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool = True,
-                 x_kv: Optional[torch.Tensor] = None, emit_cache: bool = False
+                 x_kv: Optional[torch.Tensor] = None, emit_cache: bool = False,
+                 rules: ShardingRules = RULES
                  ) -> Tuple[torch.Tensor, Optional[AttnCache]]:
     """Full-sequence attention (forward / prefill / encoder / cross).
 
@@ -254,19 +398,21 @@ def attn_forward(cfg: ModelConfig, spec: LayerSpec, p: Attention, x: torch.Tenso
     kv_positions = positions if not is_cross else torch.arange(
         x_kv.shape[1], dtype=positions.dtype, device=x.device)[None].expand(
             x.shape[0], x_kv.shape[1])
-    q, k, v = _project_qkv(cfg, p, x, x_kv, positions, spec, is_cross)
+    q, k, v = _project_qkv(cfg, p, x, x_kv, positions, spec, is_cross, rules)
     # positions are uniform across the batch: masks come from one row.
     out = _attend_qchunked(cfg, q, k, v, positions[0], kv_positions[0], spec,
-                           causal and not is_cross)
-    out = out @ p.w("wo", x.dtype)
+                           causal and not is_cross, rules)
+    out = shard(out @ p.w("wo", x.dtype), rules, "batch", "seq", "d_model")
     cache = None
     if emit_cache:
-        cache = AttnCache(k=k, v=v, pos=kv_positions.to(torch.int32).contiguous())
+        kc = shard(k, rules, "batch", "cache_seq", "kv_heads", "kv_head_dim")
+        vc = shard(v, rules, "batch", "cache_seq", "kv_heads", "kv_head_dim")
+        cache = AttnCache(k=kc, v=vc, pos=kv_positions.to(torch.int32).contiguous())
     return out, cache
 
 
 def attn_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention, x: torch.Tensor,
-                idx: torch.Tensor, cache: AttnCache
+                idx: torch.Tensor, cache: AttnCache, rules: ShardingRules = RULES
                 ) -> Tuple[torch.Tensor, AttnCache]:
     """One token a batch row against its ring-buffer KV cache.
 
@@ -278,37 +424,44 @@ def attn_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention, x: torch.Tensor
     b = x.shape[0]
     dtype = x.dtype
     positions = idx[:, None]
-    q = (x @ p.w("wq", dtype)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    k_new = (x @ p.w("wk", dtype)).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
-    v_new = (x @ p.w("wv", dtype)).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(x @ p.w("wq", dtype), cfg.n_heads, cfg.head_dim)
+    k_new = _split_heads(x @ p.w("wk", dtype), cfg.n_kv_heads, cfg.head_dim)
+    v_new = _split_heads(x @ p.w("wv", dtype), cfg.n_kv_heads, cfg.head_dim)
     if not cfg.is_encdec:  # enc-dec (whisper) uses sinusoidal positions only
         q = rope(q, positions, spec.rope_theta)
         k_new = rope(k_new, positions, spec.rope_theta)
+    # The new slice takes the cache's layout before the write.
+    k_new = shard(k_new, rules, "batch", None, "kv_heads", "kv_head_dim")
+    v_new = shard(v_new, rules, "batch", None, "kv_heads", "kv_head_dim")
+    if rules.attn_unconstrained:
+        q = shard(q, rules, "batch", None, None, "kv_head_dim")
+    else:
+        q = shard(q, rules, "batch", "seq", "heads", "head_dim")
 
     lanes = torch.arange(b, device=x.device)
     slot = idx % cache.k.shape[1]
-    cache.k[lanes, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[lanes, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.pos[lanes, slot] = idx.to(torch.int32)
+    _write_slot(cache.k, lanes, slot, k_new[:, 0].to(cache.k.dtype))
+    _write_slot(cache.v, lanes, slot, v_new[:, 0].to(cache.v.dtype))
+    _write_slot(cache.pos, lanes, slot, idx.to(torch.int32))
 
     pos = cache.pos
     valid = (pos >= 0) & (pos <= positions)
     if spec.window > 0:
         valid &= pos > positions - spec.window
     mask = valid[:, None, None, None, :]  # (B,1,1,1,L)
-    out = _attend(cfg, q, cache.k.to(dtype), cache.v.to(dtype), mask)
-    return out @ p.w("wo", dtype), cache
+    out = _attend(cfg, q, cache.k.to(dtype), cache.v.to(dtype), mask, rules)
+    return shard(out @ p.w("wo", dtype), rules, "batch", "seq", "d_model"), cache
 
 
 def cross_attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                      cache: AttnCache) -> torch.Tensor:
+                      cache: AttnCache, rules: ShardingRules = RULES) -> torch.Tensor:
     """One token a batch row against its static cross-attention cache: no
     update, no mask, every frame attended."""
-    b = x.shape[0]
     dtype = x.dtype
-    q = (x @ p.w("wq", dtype)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    out = _attend(cfg, q, cache.k.to(dtype), cache.v.to(dtype), None)
-    return out @ p.w("wo", dtype)
+    q = _split_heads(x @ p.w("wq", dtype), cfg.n_heads, cfg.head_dim)
+    q = shard(q, rules, "batch", "seq", "heads", "head_dim")
+    out = _attend(cfg, q, cache.k.to(dtype), cache.v.to(dtype), None, rules)
+    return shard(out @ p.w("wo", dtype), rules, "batch", "seq", "d_model")
 
 
 def init_attn_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, max_seq: int,
@@ -353,9 +506,10 @@ class FFN(Weights):
                 _init_linear(getattr(self, name), gen)
 
 
-def ffn_forward(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
+def ffn_forward(cfg: ModelConfig, p: FFN, x: torch.Tensor,
+                rules: ShardingRules = RULES) -> torch.Tensor:
     dtype = x.dtype
-    h = x @ p.w("w1", dtype)
+    h = shard(x @ p.w("w1", dtype), rules, "batch", None, "mlp")
     if cfg.act == "silu":
         h = F.silu(h) * (x @ p.w("w3", dtype))
     elif cfg.act == "gelu":
@@ -367,7 +521,8 @@ def ffn_forward(cfg: ModelConfig, p: FFN, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
     else:
         raise ValueError(cfg.act)
-    return h @ p.w("w2", dtype)
+    h = shard(h, rules, "batch", None, "mlp")
+    return shard(h @ p.w("w2", dtype), rules, "batch", "seq", "d_model")
 
 
 # ---------------------------------------------------------------------------
@@ -391,15 +546,28 @@ class Embedding(Weights):
                                            device=self.unembed.device) * 0.02)
 
 
-def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p.w("embed", compute_dtype(cfg))[tokens]
+def embed_tokens(cfg: ModelConfig, p: Embedding, tokens: torch.Tensor,
+                 rules: ShardingRules = RULES) -> torch.Tensor:
+    w = p.w("embed", compute_dtype(cfg))
+    if _is_dtensor(w) and not any(pl.is_shard(0) for pl in w.placements):
+        # A table whole in vocab: DTensor's embedding op keeps the gradient
+        # of batch-sharded rows a partial sum, where index_put (the backward
+        # of w[tokens]) gathers every rank's rows first.  A vocab-sharded
+        # table keeps w[tokens]: the embedding op's masked partial sum cannot
+        # take a tied unembed's gradient.
+        x = F.embedding(tokens, w)
+    else:
+        x = w[tokens]
+    return shard(x, rules, "batch", "seq", "d_model")
 
 
-def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor) -> torch.Tensor:
+def unembed(cfg: ModelConfig, p: Embedding, x: torch.Tensor,
+            rules: ShardingRules = RULES) -> torch.Tensor:
     dtype = x.dtype
     w = p.w("embed", dtype).t() if cfg.tie_embeddings else p.w("unembed", dtype)
     logits = x @ w
     if cfg.logits_softcap > 0:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    # seq None: logits live inside the chunked loss, where seq is a chunk
+    return shard(logits, rules, "batch", None, "vocab")

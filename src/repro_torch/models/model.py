@@ -32,6 +32,12 @@ updated in place: an :class:`~repro_torch.models.layers.AttnCache` (with
 its static cross cache in ``cross`` where the layer has cross-attention)
 or an :class:`~repro_torch.models.ssm.SSMCache`.
 
+Every entry point and loss takes ``rules``; with a mesh the model's
+leaves are DTensors (``repro_torch.launch.shardings.distribute``), each
+layer reads its input with the sequence whole, and MoE layers run
+expert-parallel.  :func:`abstract_params` and
+:func:`abstract_decode_caches` give the shapes on the ``meta`` device.
+
 Differences from ``repro``, each where ``repro`` would be wrong or cannot
 run: a prefill shorter than a local layer's window emits a ring of
 ``window`` slots (``repro`` keeps a cache of the prompt's length, which
@@ -57,6 +63,9 @@ from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ATTN, DENSE, MAMBA, NONE, LayerSpec, ModelConfig
 from repro_torch.models.layers import AttnCache
 from repro_torch.models.ssm import SSMCache
+from repro_torch.sharding import ShardingRules, shard
+
+RULES = layers.RULES
 
 Cache = Union[AttnCache, SSMCache]
 Caches = List[Cache]
@@ -120,41 +129,51 @@ class Encoder(nn.Module):
         self.final_norm.reset()
 
 
-def _ffn(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor):
+def _whole_seq(h: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """A layer's input with its sequence whole: under sequence parallelism
+    (``rules.seq``) the residual stream is sharded by sequence between
+    layers only, and is gathered where a mixer or an FFN reads it."""
+    if rules.seq is None:
+        return h
+    return shard(h, rules, "batch", None, "d_model")
+
+
+def _ffn(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor, rules: ShardingRules):
     """The layer's FFN residual branch: (x + ffn(norm2(x)), MoE aux)."""
-    h = layers.apply_norm(cfg, layer.norm2, x)
+    h = _whole_seq(layers.apply_norm(cfg, layer.norm2, x), rules)
     if layer.spec.ffn == DENSE:
-        return x + layers.ffn_forward(cfg, layer.ffn, h), None
-    f, aux = moe.moe_forward(cfg, layer.ffn, h)
+        return x + layers.ffn_forward(cfg, layer.ffn, h, rules), None
+    f, aux = moe.moe_forward(cfg, layer.ffn, h, rules)
     return x + f, aux
 
 
 def _layer_forward(cfg: ModelConfig, layer: DecoderLayer, x: torch.Tensor,
                    positions: torch.Tensor, emit_cache: bool = False,
-                   enc_out: Optional[torch.Tensor] = None, causal: bool = True):
+                   enc_out: Optional[torch.Tensor] = None, causal: bool = True,
+                   rules: ShardingRules = RULES):
     """One layer over the full sequence: (x, MoE aux or None, cache or None);
     a cross-attention layer attends to ``enc_out`` and emits its cross
     cache into the self cache's ``cross``."""
     spec = layer.spec
-    h = layers.apply_norm(cfg, layer.norm1, x)
+    h = _whole_seq(layers.apply_norm(cfg, layer.norm1, x), rules)
     if spec.mixer == ATTN:
         a, cache = layers.attn_forward(cfg, spec, layer.mixer, h, positions,
-                                       causal=causal, emit_cache=emit_cache)
+                                       causal=causal, emit_cache=emit_cache, rules=rules)
         if emit_cache:
             cache = _ring_compress(cfg, spec, cache)
     else:
-        a, cache = ssm.ssm_forward(cfg, layer.mixer, h, emit_cache=emit_cache)
+        a, cache = ssm.ssm_forward(cfg, layer.mixer, h, emit_cache=emit_cache, rules=rules)
     x = x + a
     if spec.cross_attn:
-        h = layers.apply_norm(cfg, layer.norm_cross, x)
+        h = _whole_seq(layers.apply_norm(cfg, layer.norm_cross, x), rules)
         a, cross = layers.attn_forward(cfg, spec, layer.cross, h, positions,
-                                       x_kv=enc_out, emit_cache=emit_cache)
+                                       x_kv=enc_out, emit_cache=emit_cache, rules=rules)
         if emit_cache:
             cache.cross = cross
         x = x + a
     aux = None
     if layer.spec.ffn != NONE:
-        x, aux = _ffn(cfg, layer, x)
+        x, aux = _ffn(cfg, layer, x, rules)
     return x, aux, cache
 
 
@@ -258,14 +277,15 @@ class Transformer(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _embed(self, tokens: torch.Tensor, patches, frames, remat: str = "none"):
+    def _embed(self, tokens: torch.Tensor, patches, frames, remat: str = "none",
+               rules: ShardingRules = RULES):
         """The decoder's input (B, S, D) and the encoder's output (or None):
         token embeddings, the first ``n_patches`` positions overwritten by
         the projected ``patches``, and for an encoder-decoder the encoded
         ``frames`` and sinusoidal positions added."""
         cfg = self.cfg
         b, s = tokens.shape
-        x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
+        x = layers.embed_tokens(cfg, self.embed, tokens, rules).to(self.dtype)
         if cfg.n_patches and patches is not None:
             patches = torch.as_tensor(patches, device=self.device)
             if patches.shape[1] > s:
@@ -278,38 +298,41 @@ class Transformer(nn.Module):
         if frames is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs frames")
         enc_out = self._encode(torch.as_tensor(frames, device=self.device).to(self.dtype),
-                               remat)
+                               remat, rules)
         positions = self._positions(b, s)
         return x + layers.sinusoidal_positions(positions, cfg.d_model).to(self.dtype), enc_out
 
-    def _encode(self, frames: torch.Tensor, remat: str) -> torch.Tensor:
+    def _encode(self, frames: torch.Tensor, remat: str, rules: ShardingRules) -> torch.Tensor:
         """``repro``'s ``_encode``: sinusoidal positions on the frames, the
         non-causal layers (each under ``remat``), the encoder's final norm."""
         cfg = self.cfg
         b, f, _ = frames.shape
         positions = self._positions(b, f)
         x = frames + layers.sinusoidal_positions(positions, cfg.d_model).to(frames.dtype)
+        x = shard(x, rules, "batch", "frames", "d_model")
         for layer in self.enc.blocks:
             def body(x, layer=layer):
-                return _layer_forward(cfg, layer, x, positions, causal=False)[0]
+                return _layer_forward(cfg, layer, x, positions, causal=False, rules=rules)[0]
             x = _maybe_remat(remat, body)(x)
         return layers.apply_norm(cfg, self.enc.final_norm, x)
 
-    def _run(self, tokens: torch.Tensor, emit_caches: bool, patches=None, frames=None):
+    def _run(self, tokens: torch.Tensor, emit_caches: bool, patches=None, frames=None,
+             rules: ShardingRules = RULES):
         cfg = self.cfg
         self._bf16_params()
         b, s = tokens.shape
         positions = self._positions(b, s)
-        x, enc_out = self._embed(tokens, patches, frames)
+        x, enc_out = self._embed(tokens, patches, frames, rules=rules)
         caches = [] if emit_caches else None
         for layer in self.layers:
-            x, _, c = _layer_forward(cfg, layer, x, positions, emit_caches, enc_out)
+            x, _, c = _layer_forward(cfg, layer, x, positions, emit_caches, enc_out,
+                                     rules=rules)
             if emit_caches:
                 caches.append(c)
         return layers.apply_norm(cfg, self.final_norm, x), caches
 
-    def train_hidden(self, tokens, *, patches=None, frames=None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def train_hidden(self, tokens, *, patches=None, frames=None,
+                     rules: ShardingRules = RULES) -> Tuple[torch.Tensor, torch.Tensor]:
         """The forward the losses differentiate: (B, S) tokens (and the
         config's ``patches`` or ``frames``) -> (final-norm hidden states
         (B, S, D), the summed MoE aux loss, fp32).
@@ -318,17 +341,20 @@ class Transformer(nn.Module):
         the encoder's too, runs under ``cfg.remat_policy``.  The casts stay
         referenced until :meth:`release_step` or the next call, since a
         rematerialized layer reads them again in the backward pass.
+        ``rules`` with a mesh run the layers on DTensors placed by
+        :mod:`repro_torch.launch.shardings` (the MoE layers expert-parallel).
         """
         cfg = self.cfg
         self._cast_for_step()
         tokens = self._tokens(tokens)
         b, s = tokens.shape
         positions = self._positions(b, s)
-        x, enc_out = self._embed(tokens, patches, frames, cfg.remat_policy)
+        x, enc_out = self._embed(tokens, patches, frames, cfg.remat_policy, rules)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for layer in self.layers:
             def body(x, layer=layer):
-                x, a, _ = _layer_forward(cfg, layer, x, positions, enc_out=enc_out)
+                x, a, _ = _layer_forward(cfg, layer, x, positions, enc_out=enc_out,
+                                         rules=rules)
                 return x, a
             x, a = _maybe_remat(cfg.remat_policy, body)(x)
             if a is not None:
@@ -337,22 +363,23 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def forward(self, tokens, *, patches=None, frames=None, last_only: bool = False,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False, rules: ShardingRules = RULES) -> torch.Tensor:
         """(B, S) tokens -> logits (B, S, Vp), or (B, 1, Vp) with
         ``last_only``, or the final-norm hidden states (B, S, D) with
         ``return_hidden`` (no unembed).  ``patches`` (B, n_patches,
         patch_dim) and ``frames`` (B, enc_frames, D) as the config needs."""
-        x, _ = self._run(self._tokens(tokens), False, patches, frames)
+        x, _ = self._run(self._tokens(tokens), False, patches, frames, rules)
         if return_hidden:
             return x
-        return layers.unembed(self.cfg, self.embed, x[:, -1:] if last_only else x)
+        return layers.unembed(self.cfg, self.embed, x[:, -1:] if last_only else x, rules)
 
     @torch.no_grad()
-    def prefill(self, tokens, *, patches=None, frames=None, with_hidden: bool = False):
+    def prefill(self, tokens, *, patches=None, frames=None, with_hidden: bool = False,
+                rules: ShardingRules = RULES):
         """Run the full prompt; returns (last-token logits (B, Vp), caches),
         plus the last hidden state (B, D) with ``with_hidden``."""
-        x, caches = self._run(self._tokens(tokens), True, patches, frames)
-        logits = layers.unembed(self.cfg, self.embed, x[:, -1:])[:, -1]
+        x, caches = self._run(self._tokens(tokens), True, patches, frames, rules)
+        logits = layers.unembed(self.cfg, self.embed, x[:, -1:], rules)[:, -1]
         if with_hidden:
             return logits, caches, x[:, -1]
         return logits, caches
@@ -360,7 +387,8 @@ class Transformer(nn.Module):
     # -- decode ----------------------------------------------------------------
 
     @torch.no_grad()
-    def decode_step(self, tokens, idx, caches: Caches, *, with_hidden: bool = False):
+    def decode_step(self, tokens, idx, caches: Caches, *, with_hidden: bool = False,
+                    rules: ShardingRules = RULES):
         """One autoregressive step for the whole batch.
 
         Args:
@@ -380,23 +408,23 @@ class Transformer(nn.Module):
         idx = torch.as_tensor(idx, device=self.device).long()
         if idx.ndim == 0:
             idx = idx.expand(b)
-        x = layers.embed_tokens(cfg, self.embed, tokens).to(self.dtype)
+        x = layers.embed_tokens(cfg, self.embed, tokens, rules).to(self.dtype)
         if cfg.is_encdec:
             x = x + layers.sinusoidal_positions(idx[:, None], cfg.d_model).to(self.dtype)
         for layer, cache in zip(self.layers, caches):
             h = layers.apply_norm(cfg, layer.norm1, x)
             if layer.spec.mixer == ATTN:
-                a, _ = layers.attn_decode(cfg, layer.spec, layer.mixer, h, idx, cache)
+                a, _ = layers.attn_decode(cfg, layer.spec, layer.mixer, h, idx, cache, rules)
             else:
-                a, _ = ssm.ssm_decode(cfg, layer.mixer, h, cache)
+                a, _ = ssm.ssm_decode(cfg, layer.mixer, h, cache, rules)
             x = x + a
             if layer.spec.cross_attn:
                 h = layers.apply_norm(cfg, layer.norm_cross, x)
-                x = x + layers.cross_attn_decode(cfg, layer.cross, h, cache.cross)
+                x = x + layers.cross_attn_decode(cfg, layer.cross, h, cache.cross, rules)
             if layer.spec.ffn != NONE:
-                x, _ = _ffn(cfg, layer, x)
+                x, _ = _ffn(cfg, layer, x, rules)
         x = layers.apply_norm(cfg, self.final_norm, x)
-        logits = layers.unembed(cfg, self.embed, x)[:, 0]
+        logits = layers.unembed(cfg, self.embed, x, rules)[:, 0]
         if with_hidden:
             return logits, caches, x[:, 0]
         return logits, caches
@@ -457,6 +485,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return model
 
 
+def abstract_params(cfg: ModelConfig) -> Transformer:
+    """The model of ``cfg`` on the ``meta`` device: every shape and dtype,
+    no memory (``repro``'s ``jax.eval_shape`` of ``init_params``)."""
+    return Transformer(cfg, device="meta")
+
+
+def abstract_decode_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                           dtype: torch.dtype = torch.bfloat16) -> Caches:
+    """Empty decode caches on the ``meta`` device (no memory)."""
+    return abstract_params(cfg).make_decode_caches(batch, max_seq, dtype)
+
+
 def _ring_compress(cfg: ModelConfig, spec: LayerSpec, c: AttnCache) -> AttnCache:
     """Convert a full prefill cache to the layer's ring-buffer layout:
     the last ``window`` positions at slots ``pos % window``."""
@@ -484,9 +524,15 @@ def _ring_compress(cfg: ModelConfig, spec: LayerSpec, c: AttnCache) -> AttnCache
 def _nll(lf: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked token NLLs of fp32 logits over the whole padded vocab (the
     padding rows are in the log-sum-exp, as in ``repro``); the label logit
-    is a gather, equal to ``repro``'s one-hot contraction."""
+    is a gather, equal to ``repro``'s one-hot contraction.  Logits that are
+    a DTensor (vocab over the model axis) take the contraction itself: each
+    rank sums its vocab shard and one all-reduce adds them (DTensor's
+    gather on a vocab-sharded dim fails for 3-d indices)."""
     logz = torch.logsumexp(lf, dim=-1)
-    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    if layers._is_dtensor(lf):
+        ll = (lf * F.one_hot(labels.long(), lf.shape[-1]).to(lf.dtype)).sum(-1)
+    else:
+        ll = lf.gather(-1, labels.long()[..., None])[..., 0]
     return (logz - ll) * mask
 
 
@@ -508,7 +554,7 @@ def _loss_chunk_size(s: int, cap: int = 512) -> int:
 
 
 def chunked_lm_loss(model: Transformer, x: torch.Tensor, labels: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, rules: ShardingRules = RULES) -> torch.Tensor:
     """Softmax cross-entropy of final hidden states (B, S, D) without the
     (B, S, Vp) logits: the unembed and the loss run over sequence chunks in
     ``repro``'s order, each chunk rematerialized in the backward pass, so
@@ -518,7 +564,7 @@ def chunked_lm_loss(model: Transformer, x: torch.Tensor, labels: torch.Tensor,
     c = _loss_chunk_size(s)
 
     def chunk(xi, li, mi):
-        lf = layers.unembed(cfg, model.embed, xi).float()
+        lf = layers.unembed(cfg, model.embed, xi, rules).float()
         return _nll(lf, li, mi).sum(), mi.sum()
 
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -530,14 +576,15 @@ def chunked_lm_loss(model: Transformer, x: torch.Tensor, labels: torch.Tensor,
     return nll_sum / m_sum.clamp_min(1.0)
 
 
-def train_loss(model: Transformer, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+def train_loss(model: Transformer, batch: Dict[str, torch.Tensor],
+               rules: ShardingRules = RULES) -> torch.Tensor:
     """``repro``'s ``train_loss``: the chunked NLL of ``batch["tokens"]``
     (with ``batch["patches"]`` and ``batch["frames"]`` where present)
     against ``batch["labels"]`` under ``batch["mask"]``, plus 0.01 x the
     MoE aux loss.  Differentiable in the model's weights."""
     x, aux = model.train_hidden(batch["tokens"], patches=batch.get("patches"),
-                                frames=batch.get("frames"))
+                                frames=batch.get("frames"), rules=rules)
     dev = model.device
     loss = chunked_lm_loss(model, x, torch.as_tensor(batch["labels"], device=dev),
-                           torch.as_tensor(batch["mask"], device=dev))
+                           torch.as_tensor(batch["mask"], device=dev), rules)
     return loss + 0.01 * aux

@@ -46,7 +46,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Weights, _param
+from repro_torch.models.layers import RULES, Weights, _param
+from repro_torch.sharding import (ShardingRules, axis_size, batch_shard_axes,
+                                  mesh_axis_names, shard)
 
 
 class SSM(Weights):
@@ -134,19 +136,15 @@ def _decay_rates(p: SSM, dt_raw: torch.Tensor):
     return dt, dt * -torch.exp(p.a_log)
 
 
-def ssm_forward(cfg: ModelConfig, p: SSM, x: torch.Tensor, *, emit_cache: bool = False
-                ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
-    """Full-sequence SSD: x (B, S, D) -> ((B, S, D), the prefill's cache or None)."""
-    bsz, s, _ = x.shape
-    di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+def _ssd(cfg: ModelConfig, xin, bmat, cmat, dt, da, d_skip, emit_cache: bool):
+    """The chunked SSD of (B, S, H P) inputs, their (B, S, N) B and C and
+    (B, S, H) dt and log-decays: (y (B, S, H P) with the D skip, the final
+    state (B, H, N, P) in fp32 or None).  H is the inputs' own, so a rank
+    can run it on its heads."""
+    bsz, s, _ = xin.shape
+    n, h, pd = bmat.shape[-1], dt.shape[-1], cfg.ssm_head_dim
     q = cfg.ssm_chunk
-    dtype = x.dtype
-
-    zxbcdt = x @ p.w("in_proj", dtype)
-    z, xbc_raw, dt_raw = _split_proj(cfg, zxbcdt)
-    xbc = _silu(_causal_conv(xbc_raw, p.w("conv_w", dtype), p.w("conv_b", dtype)))
-    xin, bmat, cmat = xbc[..., :di], xbc[..., di : di + n], xbc[..., di + n :]
-    dt, da = _decay_rates(p, dt_raw)
+    dtype = xin.dtype
 
     pad = (-s) % q  # dt = 0 on the padding: identity decay, zero input
     if pad:
@@ -165,7 +163,7 @@ def ssm_forward(cfg: ModelConfig, p: SSM, x: torch.Tensor, *, emit_cache: bool =
     # da_{j+1} + ... + da_i, summed directly (a masked cumsum) rather than
     # as cum_i - cum_j, which loses the last bits of both to cancellation;
     # the upper triangle is masked before the exp.
-    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    tri = torch.ones((q, q), dtype=torch.bool, device=xin.device).tril()
     dac = da.reshape(bsz, nc, q, h)
     li = dac[:, :, :, None, :].expand(bsz, nc, q, q, h).masked_fill(
         tri.tril(-1).logical_not()[None, None, :, :, None], 0.0).cumsum(dim=2)
@@ -179,7 +177,7 @@ def ssm_forward(cfg: ModelConfig, p: SSM, x: torch.Tensor, *, emit_cache: bool =
     seg = torch.exp(li[:, :, -1]).to(dtype)  # decay from j to the chunk's end
     states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, seg, xbar)  # (B,nc,H,N,P)
     chunk_decay = torch.exp(cum_end[:, :, 0, :]).to(dtype)  # (B,nc,H)
-    hstate = x.new_zeros((bsz, h, n, pd))
+    hstate = xin.new_zeros((bsz, h, n, pd))
     hprevs = []
     for c in range(nc):
         hprevs.append(hstate)  # the state entering chunk c
@@ -188,30 +186,91 @@ def ssm_forward(cfg: ModelConfig, p: SSM, x: torch.Tensor, *, emit_cache: bool =
 
     y_inter = torch.einsum("bcin,bchnp,bcih->bcihp", cc, hprevs, torch.exp(cum).to(dtype))
     y = (y_intra + y_inter).reshape(bsz, nc * q, h, pd)[:, :s]
-    y = y + xin.reshape(bsz, nc * q, h, pd)[:, :s] * p.w("d_skip", dtype)[None, None, :, None]
-    y = _gated_norm(p, y.reshape(bsz, s, di), z)
-    out = y @ p.w("out_proj", dtype)
+    y = y + xin.reshape(bsz, nc * q, h, pd)[:, :s] * d_skip[None, None, :, None]
+    if not emit_cache:
+        return y.reshape(bsz, s, h * pd), None
+    # _ssm_final_state: the same chunk states carried in fp32
+    hfinal = torch.zeros((bsz, h, n, pd), dtype=torch.float32, device=xin.device)
+    for c in range(nc):
+        hfinal = hfinal * chunk_decay[:, c, :, None, None].float() + states[:, c].float()
+    return y.reshape(bsz, s, h * pd), hfinal
+
+
+def _ssd_sharded(cfg: ModelConfig, xin, bmat, cmat, dt, da, d_skip, emit_cache: bool,
+                 rules: ShardingRules):
+    """:func:`_ssd`; on DTensors, on each rank's rows and heads (heads over
+    the model axis where it divides them, else replicated there): a
+    DTensor cannot run its einsums, which flatten (batch, heads) into one
+    dim sharded over two mesh axes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if rules.mesh is None or not isinstance(xin, DTensor):
+        return _ssd(cfg, xin, bmat, cmat, dt, da, d_skip, emit_cache)
+    mesh = rules.mesh
+    row_axes = batch_shard_axes(mesh, rules, xin.shape[0])
+    rows, heads = [], []
+    for name in mesh_axis_names(mesh):
+        n = axis_size(mesh, name)
+        rows.append(Shard(0) if name in row_axes else Replicate())
+        heads.append(name == "model" and n > 1 and cfg.ssm_heads % n == 0)
+    rows = tuple(rows)
+
+    def place(head_dim):
+        return tuple(Shard(head_dim) if hd else r for r, hd in zip(rows, heads))
+
+    def ssd(*args):
+        y, hfinal = _ssd(cfg, *args, emit_cache)
+        return (y, hfinal) if emit_cache else y
+
+    hfinal_place = tuple(Shard(1) if hd else r for r, hd in zip(rows, heads))
+    fn = local_map(ssd, out_placements=(place(2), hfinal_place) if emit_cache else list(place(2)),
+                   in_placements=(place(2), rows, rows, place(2), place(2),
+                                  tuple(Shard(0) if hd else Replicate() for hd in heads)),
+                   redistribute_inputs=True)
+    out = fn(xin, bmat, cmat, dt, da, d_skip)
+    return out if emit_cache else (out, None)
+
+
+def ssm_forward(cfg: ModelConfig, p: SSM, x: torch.Tensor, *, emit_cache: bool = False,
+                rules: ShardingRules = RULES) -> Tuple[torch.Tensor, Optional[SSMCache]]:
+    """Full-sequence SSD: x (B, S, D) -> ((B, S, D), the prefill's cache or None)."""
+    bsz, s, _ = x.shape
+    di, n = cfg.d_inner, cfg.ssm_state
+    dtype = x.dtype
+
+    zxbcdt = x @ p.w("in_proj", dtype)
+    z, xbc_raw, dt_raw = _split_proj(cfg, zxbcdt)
+    z = shard(z, rules, "batch", None, "mlp")
+    xbc = _silu(_causal_conv(xbc_raw, p.w("conv_w", dtype), p.w("conv_b", dtype)))
+    xin, bmat, cmat = xbc[..., :di], xbc[..., di : di + n], xbc[..., di + n :]
+    xin = shard(xin, rules, "batch", None, "mlp")
+    dt, da = _decay_rates(p, dt_raw)
+
+    y, hfinal = _ssd_sharded(cfg, xin, bmat, cmat, dt, da, p.w("d_skip", dtype),
+                             emit_cache, rules)
+    y = shard(y.reshape(bsz, s, di), rules, "batch", None, "mlp")
+    y = _gated_norm(p, y, z)
+    out = shard(y @ p.w("out_proj", dtype), rules, "batch", "seq", "d_model")
     if not emit_cache:
         return out, None
 
-    # _ssm_final_state: the same chunk states carried in fp32
-    hfinal = torch.zeros((bsz, h, n, pd), dtype=torch.float32, device=x.device)
-    for c in range(nc):
-        hfinal = hfinal * chunk_decay[:, c, :, None, None].float() + states[:, c].float()
     tail = xbc_raw[:, max(0, s - (cfg.ssm_conv_width - 1)) :, :]
     tail = F.pad(tail, (0, 0, cfg.ssm_conv_width - 1 - tail.shape[1], 0))
     return out, SSMCache(h=hfinal, conv=tail.contiguous())
 
 
-def ssm_decode(cfg: ModelConfig, p: SSM, x: torch.Tensor, cache: SSMCache
-               ) -> Tuple[torch.Tensor, SSMCache]:
+def ssm_decode(cfg: ModelConfig, p: SSM, x: torch.Tensor, cache: SSMCache,
+               rules: ShardingRules = RULES) -> Tuple[torch.Tensor, SSMCache]:
     """One token a batch row: x (B, 1, D) -> (B, 1, D); ``cache`` is updated
     in place (its state in fp32, its conv window in the cache's dtype)."""
     bsz = x.shape[0]
     di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     dtype = x.dtype
 
-    zxbcdt = x[:, 0, :] @ p.w("in_proj", dtype)
+    # (rows unsharded under fsdp, the projection comes back as partial sums
+    # over the data axis: sum them before the state's einsums)
+    zxbcdt = shard(x[:, 0, :] @ p.w("in_proj", dtype), rules, "batch", "mlp")
     z, xbc_new, dt_raw = _split_proj(cfg, zxbcdt)
     window = torch.cat([cache.conv.to(dtype), xbc_new[:, None, :]], dim=1)
     conv_out = torch.einsum("bwc,wc->bc", window, p.w("conv_w", dtype))
@@ -228,4 +287,4 @@ def ssm_decode(cfg: ModelConfig, p: SSM, x: torch.Tensor, cache: SSMCache
     y = _gated_norm(p, y.reshape(bsz, 1, di), z[:, None, :])
     cache.h.copy_(hnew)
     cache.conv.copy_(window[:, 1:, :])
-    return y @ p.w("out_proj", dtype), cache
+    return shard(y @ p.w("out_proj", dtype), rules, "batch", "seq", "d_model"), cache

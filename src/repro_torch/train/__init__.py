@@ -3,6 +3,7 @@
 from repro_torch.train.train_loop import (  # noqa: F401
     TrainConfig,
     TrainState,
+    abstract_train_state,
     init_train_state,
     make_train_step,
 )

@@ -9,6 +9,12 @@ microbatches (``repro``'s ``_split_micro``), each one's gradients taken
 with ``torch.autograd.grad`` and summed in ``accum_dtype`` (bf16
 included, as ``repro`` sums them), then divided by n and cast to fp32;
 the loss is the mean over microbatches.  The update is in place.
+
+With ``rules`` that carry a mesh the parameters, moments and batch are
+DTensors (:mod:`repro_torch.launch.shardings`): each rank splits its own
+rows into the microbatches (microbatch i holds rows [i b/n, (i+1) b/n) of
+every rank's b rows), and the loss runs under those rules.
+:func:`abstract_train_state` is the state on the ``meta`` device.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from repro_torch.index.facade import DeviceLike
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import OptimizerConfig, apply_updates, init_opt_state
+from repro_torch.sharding import ShardingRules
 
 TrainState = Dict[str, Any]  # {"params": Transformer, "opt", "step"}
 
@@ -47,13 +54,29 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0, *,
     }
 
 
+def abstract_train_state(cfg: ModelConfig, tcfg: TrainConfig) -> TrainState:
+    """The train state's shapes and dtypes on the ``meta`` device (no memory)."""
+    m = model.abstract_params(cfg)
+    m.requires_grad_(True)
+    return {"params": m, "opt": init_opt_state(dict(m.named_parameters()), tcfg.optimizer),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def _micro(v: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):  # split this rank's rows
+        local = _micro(v.to_local(), n, i)
+        return DTensor.from_local(local, v.device_mesh, v.placements, run_check=False)
+    return v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+
+
 def _split_micro(batch: Dict[str, torch.Tensor], n: int):
     """Microbatch i of n: rows [i B/n, (i+1) B/n) of every entry."""
-    return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
-            for i in range(n)]
+    return [{k: _micro(v, n, i) for k, v in batch.items()} for i in range(n)]
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, rules: ShardingRules = ShardingRules()):
     adt = torch.bfloat16 if tcfg.accum_dtype == "bfloat16" else torch.float32
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -62,14 +85,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
         n = tcfg.n_microbatches
         try:
             if n == 1:
-                loss = model.train_loss(m, batch)
+                loss = model.train_loss(m, batch, rules)
                 grads = torch.autograd.grad(loss, params)
                 loss = loss.detach()
             else:
-                gsum = [torch.zeros(p.shape, dtype=adt, device=p.device) for p in params]
+                gsum = [torch.zeros_like(p, dtype=adt) for p in params]
                 lsum = torch.zeros((), dtype=torch.float32, device=m.device)
                 for mb in _split_micro(batch, n):
-                    loss = model.train_loss(m, mb)
+                    loss = model.train_loss(m, mb, rules)
                     for acc, g in zip(gsum, torch.autograd.grad(loss, params)):
                         acc.add_(g.to(adt))
                     lsum = lsum + loss.detach()

@@ -9,8 +9,7 @@ through both packages' ``moe_forward`` on the CPU, in fp32:
 * the MoE decoders (granite_moe_1b, mixtral_8x22b smoke configs): the
   module's parameter count is ``cfg.param_count()``, its leaves are
   ``repro``'s, and prefill then decode equals the forward pass at the
-  configs' drop-free capacity;
-* ``moe_forward_ep`` (experts over a mesh) raises naming ROADMAP 13e.
+  configs' drop-free capacity.
 """
 
 import dataclasses
@@ -131,8 +130,3 @@ def test_prefill_then_decode_equals_forward_drop_free(arch):
     for t in range(s_pre, S):
         logits, caches = tm.decode_step(toks[:, t : t + 1], t, caches)
         torch.testing.assert_close(logits, full[:, t], rtol=1e-4, atol=1e-5)
-
-
-def test_moe_forward_ep_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md module 13e"):
-        tmoe.moe_forward_ep()
