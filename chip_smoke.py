@@ -102,16 +102,16 @@ equal those on the CPU, then drives the paths at full width on
   prefill of 1,016 tokens plus 8 decode steps against the forward pass
   (fp32, 2 x 1,024 tokens); phase ``knn_lm`` builds a datastore of the
   hidden states of 512 sequences of 2,049 tokens (1,048,576 keys x 1152)
-  and decodes 16 prompts of 1,024 tokens for 64 steps with a lookup a
+  and decodes 16 prompts of 1,024 tokens for 32 steps with a lookup a
   step and churn every 4 (the kernel route equal to the plain route on
   every step's hidden states, mixed rows summing to 1, recall@8 against
   exact top-8 on every 4th step), then 16
   steps through ``serving_engine`` and a forced ``compact()``; phase
-  ``knn_lm_sharded`` builds the same keys on 4 logical shards, decodes 8
+  ``knn_lm_sharded`` builds the same keys on 4 logical shards, decodes 4
   steps, saves and loads a store of the first 131,072 keys on 4 shards
   and on 1, and serves a static 4-shard index through
   ``RetrievalEngine`` (bit-equal to a direct search); phase
-  ``scheduler`` runs ``ContinuousBatchingEngine`` (8 slots, 24 requests
+  ``scheduler`` runs ``ContinuousBatchingEngine`` (8 slots, 16 requests
   of 64-1,024 prompt tokens, 32 new each) sampling through
   ``knn_lm_mix``.
 
@@ -155,9 +155,10 @@ equal those on the CPU, then drives the paths at full width on
 
 * The distribution layer, after the zoo (``repro_torch.sharding``,
   ``launch/shardings.py``, ``launch/dryrun.py``; no kernel is on it): phase
-  ``moe_ep`` spawns 4 ranks on the one card over gloo and runs the
-  expert-parallel MoE (``moe_forward_ep``) with the dense layers
-  replicated, each check held within 1e-4 / 1e-5 of a single-process run
+  ``moe_ep`` spawns 4 ranks on the one card, which form their gloo group
+  through ``launch/multihost.py``'s ``bootstrap`` as the processes of one
+  host (the world of 4 is checked), and runs the expert-parallel MoE
+  (``moe_forward_ep``) with the dense layers replicated, each check held within 1e-4 / 1e-5 of a single-process run
   on the card in fp32: mixtral_8x22b's MoE layer at its published widths
   (2 of 8 experts a rank, 2.4 GB) on a (1, 4) mesh, then granite_moe_1b at
   full depth and width (8 of 32 experts a rank) on (1, 4) and (2, 2): its
@@ -371,15 +372,15 @@ LM_FULL_TOL = 2e-2  # test_models_smoke.py's prefill-then-decode tolerance
 KNN_CORPUS = (512, 2049)  # sequences x tokens: 512 x 2048 = 1,048,576 keys
 KNN_FORWARD_BATCH = 16  # sequences a forward pass of the datastore build
 KNN_PROMPTS = (16, 1024)
-KNN_STEPS = 64  # decode steps with lookups and churn every 4
+KNN_STEPS = 32  # decode steps with lookups and churn every 4 (a cut of depth from 64)
 KNN_ENGINE_STEPS = 16  # decode steps through serving_engine
-KNN_SHARDED_STEPS = 8  # a cut of depth from 16 (1.2 s a step)
+KNN_SHARDED_STEPS = 4  # a cut of depth from 16, then 8 (1.2-1.8 s a step)
 KNN_RECALL_EVERY = 4  # decode steps between recall checks (a cut of depth from 1)
 KNN_BUNDLE_ROWS = 1 << 17  # the sharded store's save/load checks (a cut of depth)
 KNN_MIX_TOL = 1e-3  # each row of the mixed distribution sums to 1
 LM_LAM = 0.25
 SCHED_SLOTS, SCHED_MAX_SEQ = 8, 2048
-SCHED_REQUESTS, SCHED_PROMPT, SCHED_NEW = 24, (64, 1024), 32
+SCHED_REQUESTS, SCHED_PROMPT, SCHED_NEW = 16, (64, 1024), 32  # 24 before (depth)
 
 # Training and MoE (phases train_device_parity, train_full_width,
 # moe_full_width, train_resume): gemma3_1b and granite_moe_1b at their
@@ -3257,7 +3258,7 @@ def phase_knn_lm(torch, seed: int) -> tuple:
     """The kNN-LM decode path at full width, through the serve driver's
     functions: gemma3_1b (bf16) builds a datastore of the hidden states of
     512 sequences of 2,049 tokens (1,048,576 keys x 1152, stored points),
-    then decodes 16 prompts of 1,024 tokens for 64 steps with a lookup a
+    then decodes 16 prompts of 1,024 tokens for 32 steps with a lookup a
     step and churn every 4, and 16 more through ``serving_engine`` with a
     ``MaintenancePolicy`` and a forced ``compact()``.  On every step the
     kernel route equals the plain route, the mixed rows sum to 1, and
@@ -4388,13 +4389,18 @@ def moe_ep_rank(rank: int, port: int, ref_path: str, seed: int, cases, out_path:
 
     from repro_torch import configs
     from repro_torch.launch import shardings
+    from repro_torch.launch.multihost import bootstrap
     from repro_torch.models import moe
     from repro_torch.models.model import init_params, train_loss
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=MOE_EP_RANKS)
+    # the ranks are one host's processes: the port's bootstrap forms their group
+    bootstrap(coordinator=f"localhost:{port}", host_id=0, n_hosts=1, local_rank=rank,
+              gpus_per_host=MOE_EP_RANKS, backend="gloo")
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != MOE_EP_RANKS:
+        raise AssertionError(f"bootstrap formed a world of {world}, not {MOE_EP_RANKS}")
     ref = torch.load(ref_path, mmap=True, map_location="cpu", weights_only=True)
     rows = []
 
@@ -4416,7 +4422,7 @@ def moe_ep_rank(rank: int, port: int, ref_path: str, seed: int, cases, out_path:
     seconds = time.perf_counter() - t0
     r = ref["layer"]
     rows.append({"check": "layer", "arch": cfg.name, "mesh": [1, MOE_EP_RANKS],
-                 "experts_a_rank": e_loc, "rank_weights_gb": sum(
+                 "bootstrap_world": world, "experts_a_rank": e_loc, "rank_weights_gb": sum(
                      t.nbytes for t in w.values()) / 1e9,
                  "seconds": seconds, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                  **_errors(torch, [(out, r["out"]), (aux, r["aux"]), (gx, r["g_x"]),

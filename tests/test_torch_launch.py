@@ -3,9 +3,11 @@
 
 * ``resolve_topology`` and ``host_batch_slice`` equal ``repro``'s on the
   environments of ``tests/test_multihost.py`` and a few more;
-  ``bootstrap`` with two hosts on localhost gloo (two subprocesses)
-  all-reduces their ranks, and a single host leaves ``torch.distributed``
-  uninitialized;
+  ``bootstrap`` with two hosts, and with two processes of one host, on
+  localhost gloo (two subprocesses) all-reduces their ranks, and a single
+  process leaves ``torch.distributed`` uninitialized;
+* ``resolve_rank`` under SLURM with one task a GPU and one task a host,
+  and ``rank_batch_slice`` over every rank;
 * the dry run's planning (``rules_for``, ``microbatches_for``,
   ``needs_seq_shard``, ``saved_stack_bytes``, ``input_specs``' shapes and
   dtypes) equals ``repro``'s for every arch x shape x mesh at ``repro``'s
@@ -103,23 +105,30 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-_HOST = """
+_PROCESS = """
 import sys, torch, torch.distributed as dist
 from repro_torch.launch.multihost import bootstrap
-topo = bootstrap(coordinator=sys.argv[1], host_id=int(sys.argv[2]), n_hosts=2, backend="gloo")
+coord, host_id, n_hosts, local_rank, gpus = sys.argv[1], *map(int, sys.argv[2:])
+topo = bootstrap(coordinator=coord, host_id=host_id, n_hosts=n_hosts, local_rank=local_rank,
+                 gpus_per_host=gpus, backend="gloo")
 t = torch.tensor([float(dist.get_rank())])
 dist.all_reduce(t)
 print(topo.source, dist.get_rank(), dist.get_world_size(), float(t))
 dist.destroy_process_group()
 """
+# (host_id, n_hosts, local_rank, gpus_per_host) of each process
+LAYOUTS = {"2_hosts_x_1_process": [(0, 2, 0, 1), (1, 2, 0, 1)],
+           "1_host_x_2_processes": [(0, 1, 0, 2), (0, 1, 1, 2)]}
 
 
-def test_bootstrap_two_hosts_on_localhost_gloo():
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_bootstrap_two_hosts_on_localhost_gloo(layout):
     coord = f"localhost:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = [subprocess.Popen([sys.executable, "-c", _HOST, coord, str(i)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for i in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", _PROCESS, coord, *map(str, args)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for args in LAYOUTS[layout]]
     outs = []
     try:
         for p in procs:
@@ -130,6 +139,42 @@ def test_bootstrap_two_hosts_on_localhost_gloo():
         for p in procs:
             p.kill()
     assert sorted(outs) == [["manual", "0", "2", "1.0"], ["manual", "1", "2", "1.0"]]
+
+
+def test_resolve_rank_reads_slurm_task_per_gpu_and_task_per_host():
+    RankLayout = multihost.RankLayout
+    # srun --ntasks-per-node=8 on 2 nodes: node 1's task 1
+    env = {"SLURM_PROCID": "9", "SLURM_NTASKS": "16", "SLURM_NNODES": "2",
+           "SLURM_NODEID": "1", "SLURM_LOCALID": "1", "SLURM_STEP_NODELIST": "gpu[003-004]"}
+    topo = multihost.resolve_topology(env=env)
+    for kw in ({}, {"gpus_per_host": 8}, {"local_rank": 1}):
+        assert multihost.resolve_rank(topo, env, **kw) == RankLayout(9, 16, 1)
+    with pytest.raises(ValueError, match="gpus_per_host=4.*16 tasks on 2 nodes"):
+        multihost.resolve_rank(topo, env, gpus_per_host=4)
+    with pytest.raises(ValueError, match="local_rank=3.*SLURM_LOCALID=1"):
+        multihost.resolve_rank(topo, env, local_rank=3)
+    # one task a host (repro's convention): its gpus_per_host processes
+    env = {"SLURM_PROCID": "1", "SLURM_NTASKS": "2", "SLURM_NNODES": "2",
+           "SLURM_NODEID": "1", "SLURM_LOCALID": "0", "SLURM_STEP_NODELIST": "gpu[003-004]"}
+    topo = multihost.resolve_topology(env=env)
+    assert (topo.host_id, topo.n_hosts) == (1, 2)
+    assert (multihost.resolve_rank(topo, env, local_rank=3, gpus_per_host=8)
+            == RankLayout(1 * 8 + 3, 2 * 8, 3))
+    single = multihost.resolve_topology(env={})
+    assert multihost.resolve_rank(single, {}) == RankLayout(0, 1, 0)
+    assert multihost.resolve_rank(single, {}, 5, 8) == RankLayout(5, 8, 5)
+    with pytest.raises(ValueError, match="local_rank=8 outside .0, gpus_per_host=8"):
+        multihost.resolve_rank(single, {}, local_rank=8, gpus_per_host=8)
+    with pytest.raises(ValueError, match="coordinator's port"):
+        multihost.bootstrap(env={}, local_rank=1, gpus_per_host=2, backend="gloo")
+
+
+def test_rank_batch_slice_covers_the_batch_once():
+    for world in (1, 2, 8, 16, 256):
+        rows = [i for r in range(world) for i in range(*multihost.rank_batch_slice(256, r, world))]
+        assert rows == list(range(256)), world
+    topo = multihost.resolve_topology(coordinator="h:1", host_id=3, n_hosts=4)
+    assert multihost.rank_batch_slice(256, 3, 4) == multihost.host_batch_slice(256, topo)
 
 
 def test_bootstrap_single_host_leaves_no_process_group():

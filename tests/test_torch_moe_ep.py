@@ -114,11 +114,13 @@ def _rank_main(rank: int, port: int, out_dir: str) -> None:
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.launch import shardings
+    from repro_torch.launch.multihost import bootstrap
     from repro_torch.sharding import make_rules
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=RANKS)
+    bootstrap(coordinator=f"localhost:{port}", host_id=0, n_hosts=1, local_rank=rank,
+              gpus_per_host=RANKS, backend="gloo")
+    assert dist.get_world_size() == RANKS
     out = {}
     for arch in ARCHS:
         cfg = port_cfg(arch)
