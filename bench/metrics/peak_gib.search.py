@@ -1,0 +1,4 @@
+"""peak_gib.search: the card's allocated-memory peak (GiB) over the window's
+search units, from the allocator's counter reset when the window opened."""
+
+from hfbench.readers import peak_gib as read  # noqa: F401
