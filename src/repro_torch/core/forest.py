@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import hilbert
 from repro_torch.core.types import ForestConfig
+from repro_torch.obs.trace import stage
 
 __all__ = ["HilbertForest", "forest_randomization", "build_forest", "tree_candidates"]
 
@@ -99,10 +100,12 @@ def tree_candidates(
     handled downstream.
     """
     n = order.shape[0]
-    qkeys = hilbert.hilbert_keys(
-        queries, bits=bits, key_bits=key_bits, lo=lo, hi=hi, perm=perm, flip=flip
-    )
-    j = hilbert.lex_searchsorted(directory, qkeys)  # (Q,) in [0, n_dir + 1]
+    with stage("search.keys"):
+        qkeys = hilbert.hilbert_keys(
+            queries, bits=bits, key_bits=key_bits, lo=lo, hi=hi, perm=perm, flip=flip
+        )
+    with stage("search.directory"):
+        j = hilbert.lex_searchsorted(directory, qkeys)  # (Q,) in [0, n_dir + 1]
     # directory[j-1] <= q < directory[j]  =>  true rank in ((j-1)·leaf, j·leaf];
     # center the window on the interval midpoint to avoid a +leaf/2 bias.
     rank = torch.clamp(j * leaf_size - leaf_size // 2, 0, n - 1)

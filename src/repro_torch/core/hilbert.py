@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.quantize import ROW_CHUNK
 from repro_torch.kernels import bitpack
+from repro_torch.obs.trace import stage
 
 __all__ = [
     "axes_to_transpose",
@@ -277,9 +278,10 @@ def hilbert_sort(
     flip: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hilbert-sort ``points``; returns (order int32, sorted_keys)."""
-    keys = hilbert_keys(
-        points, bits=bits, key_bits=key_bits, lo=lo, hi=hi, perm=perm, flip=flip
-    )
+    with stage("hilbert.keys", device=points.device, rows=points.shape[0]):
+        keys = hilbert_keys(
+            points, bits=bits, key_bits=key_bits, lo=lo, hi=hi, perm=perm, flip=flip
+        )
     order = _lexsort_words(keys)
     return order.to(torch.int32), keys[order]
 

@@ -29,6 +29,7 @@ from repro_torch.core import hilbert, quantize, sketch
 from repro_torch.core.search import _merge_topk_dedup, _topk_smallest
 from repro_torch.core.types import ForestConfig, GraphParams, QuantizerConfig
 from repro_torch.kernels.hamming import hamming_rows_indexed
+from repro_torch.obs.trace import stage
 
 __all__ = [
     "order_and_rank",
@@ -122,13 +123,15 @@ def graph_survivors(
     rng = np.random.default_rng(params.seed)
     best_id = torch.full((n, params.k2), -1, dtype=torch.int32, device=dev)
     best_dist = torch.full((n, params.k2), _INF, dtype=torch.int32, device=dev)
-    for _ in range(params.n_orders):
+    for o in range(params.n_orders):
         perm = torch.as_tensor(rng.permutation(d).astype(np.int32), device=dev)
         flip = torch.as_tensor(rng.integers(0, 2, d).astype(bool), device=dev)
         order, rank = order_and_rank(points, lo, hi, perm, flip, bits=bits,
                                      key_bits=key_bits)
-        best_id, best_dist = merge_order(best_id, best_dist, order, rank, sketches,
-                                         k1=params.k1, k2=params.k2, chunk=chunk)
+        with stage("graph.merge", device=dev, order=o, rows=n, k1=params.k1,
+                   k2=params.k2):
+            best_id, best_dist = merge_order(best_id, best_dist, order, rank, sketches,
+                                             k1=params.k1, k2=params.k2, chunk=chunk)
     return best_id, best_dist
 
 

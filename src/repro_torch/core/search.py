@@ -29,6 +29,7 @@ from repro_torch.core.types import ForestConfig, QuantizerConfig, SearchParams
 from repro_torch.kernels.hamming import hamming_rows_indexed, hamming_rows_indexed_ref
 from repro_torch.kernels.qdist import qdist_windows_rows, qdist_windows_rows_ref
 from repro_torch.kernels.qdist import window_rows as _window_slices
+from repro_torch.obs.trace import stage
 
 __all__ = [
     "hilbert_master_sort",
@@ -133,7 +134,8 @@ def stage1_tree_merge(
     mpos = master_rank[cand_ids]  # (Q, k1) master positions
     hd = (hamming_rows_indexed if use_kernels else hamming_rows_indexed_ref)(
         qsketches, sketches_master, mpos)
-    return _merge_topk_dedup(best_pos, best_dist, mpos, hd, k2)
+    with stage("search.merge"):
+        return _merge_topk_dedup(best_pos, best_dist, mpos, hd, k2)
 
 
 def _expand_windows(best_pos, n: int, h: int):

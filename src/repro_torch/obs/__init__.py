@@ -42,7 +42,7 @@ from .registry import (
     percentile_label,
     percentiles,
 )
-from .trace import Span, Tracer, default_tracer, disable, enable, span
+from .trace import Span, Tracer, default_tracer, disable, enable, span, stage
 
 __all__ = [
     "accounting_delta", "accounting_snapshot", "compiles_total",
@@ -52,5 +52,5 @@ __all__ = [
     "live_parts", "live_points", "recall_at_k",
     "Counter", "Gauge", "LatencyRecorder", "MetricsRegistry",
     "default_registry", "percentile_label", "percentiles",
-    "Span", "Tracer", "default_tracer", "disable", "enable", "span",
+    "Span", "Tracer", "default_tracer", "disable", "enable", "span", "stage",
 ]

@@ -13,6 +13,7 @@ import json
 import threading
 import urllib.error
 import urllib.request
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -144,18 +145,23 @@ def test_span_tree_and_chrome_trace_match():
     assert ts == sorted(ts)
 
 
-def test_span_block_times_device_wait_and_noop_span():
-    import torch
-
-    tr = tobs.Tracer(enabled=True)
-    x = torch.ones(4)
-    with tr.span("blocked") as s:
-        assert s.block((x, [x], {"a": x})) is not None
-    assert tr.spans()[0].device_ms is not None
+def test_noop_span_and_the_device_clock_off_the_card():
+    """A disabled tracer hands out the shared no-op span and records
+    nothing; an enabled one gives a span opened on the CPU, or on no
+    device, no device clock."""
     off = tobs.Tracer(enabled=False)
-    with off.span("never") as s:
-        assert s.block(x) is x
-    assert off.spans() == []
+    s = off.span("never", device="cpu", rows=3)
+    assert s is off.span("other")
+    with s as inner:
+        assert inner.set(k=1) is inner and inner.device_ms is None
+    assert off.spans() == [] and off.dropped == 0
+    tr = tobs.Tracer(enabled=True)
+    with tr.span("cpu", device="cpu") as a:
+        assert a.device_ms is None
+        with tr.span("plain"):
+            pass
+    assert [(s.name, s.device_ms) for s in tr.spans()] == [("plain", None), ("cpu", None)]
+    assert a.attrs == {}  # ``device`` is not an attribute
 
 
 # -- dispatch accounting ------------------------------------------------------
@@ -492,6 +498,10 @@ def test_engine_spans_and_series_match_repro(data, tmp_path):
             eng.search(queries[:16])
             eng.score_recall()
             shapes[name] = _shape(tracer)
+            if name == "torch":
+                by_id = {s.span_id: s.name for s in tracer.spans()}
+                stage_parents = Counter(by_id.get(s.parent_id)
+                                        for s in tracer.stage_spans())
         finally:
             tracer.enabled = prev
             tracer.clear()
@@ -518,7 +528,12 @@ def test_engine_spans_and_series_match_repro(data, tmp_path):
         # gauges are live state: the ones an engine binds must be there
         assert set(ENGINE_GAUGES) <= set(after), (name, set(ENGINE_GAUGES) - set(after))
         eng.stop()
+    # The port's stage spans have no counterpart in ``repro``; they keep to
+    # a ring of their own, so the compared ring is ``repro``'s span for span.
     assert shapes["torch"] == shapes["jax"]
+    assert stage_parents["engine.search"] > 0
+    assert set(stage_parents) <= {"engine.search", "maint.prewarm", "lsm.segment_build",
+                                  "lsm.compact", "build.forest", "build.master_sort"}
     names = {n for n, _, _ in shapes["torch"]}
     assert {"engine.batch", "engine.search", "maint.cycle", "maint.swap",
             "lsm.compact", "lsm.segment_build", "build.forest",
